@@ -4,16 +4,31 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 NVIDIA Hopper card, ``nvcc`` and PyTorch built for CUDA; it never imports JAX
 or the JAX package. Phases, each of which fails the run on any fault:
 
-1. build both kernels from ``pytorch_retinanet_tpu_torch/csrc`` (one ``nvcc``
-   per source, in parallel) and print the card's name and power limit;
+1. build the three kernels from ``pytorch_retinanet_tpu_torch/csrc`` (one
+   ``nvcc`` per source, in parallel) and print the card's name and power limit;
 2. fused stem kernel against ``stem_plain`` at [32, 800, 1344, 3];
 3. NMS kernel against ``nms_keep_mask_plain`` on dense synthetic clusters;
 4. the main path: R50-FPN ``Retinanet.predict`` on 32 seeded 800x1333 images
    (the 800x1344 bucket), both launch counts read around that run alone,
    then the NMS kernel against its plain version on that run's candidates,
    and ``predict`` on the card against ``predict`` on the CPU at a small size;
-5. times (CUDA events after warm-up): each kernel beside its bound, its
-   plain version and a PyTorch yardstick, and predict img/s at batch 32.
+5. times (CUDA events after warm-up): the stem and NMS kernels beside their
+   bounds, plain versions and PyTorch yardsticks, and predict img/s at
+   batch 32;
+6. match kernel against ``match_targets_plain`` at the training shapes:
+   batch 16, the five levels of the 800x1344 bucket, 100 GT rows, seeded GT
+   with 0, 1, a few and 100 valid rows and a constructed IoU tie;
+7. the training path: ``Trainer(max_steps=7).fit`` of an R50-FPN
+   ``RetinaNetModel`` (the ``configs/hparams.yaml`` values) on seeded uint8
+   batches of 16 at 800x1344; the match launches read around the fit
+   alone, finite losses, every parameter moved, BN statistics unchanged;
+8. one training step on the card against the same step on the CPU (f32
+   resnet18 at 128x192, the card through the match kernel, the CPU through
+   the plain composition);
+9. times: the match kernel (summed over the five levels) beside its bound
+   and plain version, the loss forward and forward+backward with and
+   without the kernel, the training step's stages, the training step
+   (median of 5, host clock), peak memory.
 
 The last lines are the ``kernels`` JSON, the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -37,6 +52,25 @@ F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 
 BATCH, H, W = 32, 800, 1344
 STEM_TOL = "|kernel - plain| <= 1 bf16 ulp of the larger value + 1e-6"
+PREDICT_KERNELS = ("fused_stem", "nms_keep_mask")
+MATCH_TOL = "matches, fg_labels and centre targets exact; tw, th within 2 f32 ulp"
+TRAIN_BATCH, TRAIN_STEPS, MAX_GT = 16, 7, 100
+# configs/hparams.yaml, written out: the card has no yaml.
+HPARAMS = {
+    "model": {"backbone_kind": "resnet50", "num_classes": 90, "freeze_bn": True,
+              "min_size": 800, "max_size": 1333, "pretrained": False},
+    "dataloader": {"train_bs": TRAIN_BATCH, "valid_bs": TRAIN_BATCH, "test_bs": TRAIN_BATCH},
+    "optimizer": {"class_name": "torch.optim.SGD",
+                  "params": {"lr": 0.001, "weight_decay": 0.001, "momentum": 0.9}},
+    "scheduler": {"class_name": "torch.optim.lr_scheduler.ReduceLROnPlateau",
+                  "params": {"mode": "min", "factor": 0.1, "patience": 5},
+                  "interval": "epoch", "frequency": 1, "monitor": "val_loss"},
+}
+# One step on the card against one on the CPU (f32): the step's loss, and
+# each parameter's update (after - before) against that tensor's largest.
+# cuDNN's f32 backward algorithms sum (or transform) in another order than
+# the CPU's: the largest relative differences show in the FPN's convs.
+STEP_LOSS_RTOL, STEP_UPDATE_TOL = 1e-4, 1e-2
 
 
 def log(msg: str) -> None:
@@ -83,6 +117,282 @@ def dense_clusters(gen: torch.Generator, batch: int, k: int, device) -> tuple:
     return boxes.to(device), valid.to(device)
 
 
+def log_kernel_time(r: dict) -> None:
+    log(f"[time] {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
+        f"{r['library_ms']}, bound {r['bound_ms']:.4f} ms by {r['bound_by']})")
+
+
+def f32_ulp_distance(a: torch.Tensor, b: torch.Tensor) -> int:
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def seeded_gt(rng: np.random.Generator, n_valid, h: int, w: int):
+    """Padded [B, MAX_GT] boxes, labels and valid rows inside an h x w image."""
+    b = len(n_valid)
+    ctr = rng.uniform([0, 0], [w, h], (b, MAX_GT, 2))
+    wh = rng.uniform(16, 400, (b, MAX_GT, 2))
+    boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1).clip(0, [w, h, w, h])
+    valid = np.arange(MAX_GT)[None] < np.asarray(n_valid)[:, None]
+    boxes = np.where(valid[..., None], boxes, 0.0).astype(np.float32)
+    labels = np.where(valid, rng.integers(1, 91, (b, MAX_GT)), 0).astype(np.int32)
+    return boxes, labels, valid
+
+
+def seeded_batches(steps: int, batch: int, h: int, w: int, seed: int) -> list:
+    """A train loader: `steps` batches of uint8 images and padded GT, made
+    from a seed (1-100 boxes per image, the first image of each batch none)."""
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 256, (batch, h, w, 3), dtype=np.uint8)
+    batches = []
+    for _ in range(steps):
+        n_valid = rng.integers(1, MAX_GT + 1, batch)
+        n_valid[0] = 0
+        boxes, labels, valid = seeded_gt(rng, n_valid, h, w)
+        batches.append({"images": images, "boxes": boxes, "labels": labels, "valid": valid})
+    return batches
+
+
+def check_match_kernel(dev, results, match_targets, match_targets_plain, anchors_levels):
+    """Phase 6: the kernel against its plain version at the training shapes.
+    Returns the inputs, for the timing phase."""
+    rng = np.random.default_rng(6)
+    n_valid = np.concatenate([[0, 1, 3, 100], rng.integers(1, MAX_GT + 1, TRAIN_BATCH - 4)])
+    boxes, labels, valid = seeded_gt(rng, n_valid, H, W)
+    # A tie under anchor 5000 of level 0: image 3's rows 4 and 5 are that
+    # anchor's box; the first of the two must win.
+    boxes[3, 4] = boxes[3, 5] = anchors_levels[0][5000].cpu().numpy()
+    gt = [torch.from_numpy(x).to(dev) for x in (boxes, labels, valid)]
+    err = 0.0
+    for level, anchors in enumerate(anchors_levels):
+        got = match_targets(anchors, *gt)
+        want = match_targets_plain(anchors, *gt)
+        torch.cuda.synchronize()
+        exact = (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                 and torch.equal(got[2][..., :2], want[2][..., :2]))
+        ulps = f32_ulp_distance(got[2][..., 2:], want[2][..., 2:])
+        if not exact or ulps > 2:
+            raise SystemExit(f"match kernel disagrees with plain at level {level}: "
+                             f"exact parts equal {exact}, size targets {ulps} ulp")
+        err = max(err, float((got[2] - want[2]).abs().max()))
+        if level == 0 and int(got[0][3, 5000]) != 4:
+            raise SystemExit(f"match kernel tie went to row {int(got[0][3, 5000])}, not 4")
+        log(f"[match] level {level}: [{TRAIN_BATCH}, {anchors.shape[0]}] x {MAX_GT} GT rows: "
+            f"{MATCH_TOL} ({ulps} ulp); fg {int((got[0] >= 0).sum())}, "
+            f"ignored {int((got[0] == -2).sum())}")
+    results["match_targets"]["max_abs_err"] = err
+    return gt
+
+
+def time_loss_arms(dev, anchors_levels, gt, retinanet_loss_levels) -> None:
+    """The loss forward and forward+backward on R50 head outputs at batch 16
+    (bf16, as the head emits them), with the match kernel and with the
+    plain composition, in turns: plain, kernel, kernel, plain."""
+    g = torch.Generator().manual_seed(9)
+    cls = [(torch.randn((TRAIN_BATCH, a.shape[0], 90), generator=g) * 2 - 4).to(dev, torch.bfloat16)
+           .requires_grad_() for a in anchors_levels]
+    box = [(torch.randn((TRAIN_BATCH, a.shape[0], 4), generator=g) * 0.3).to(dev, torch.bfloat16)
+           .requires_grad_() for a in anchors_levels]
+
+    def fwd(kernel):
+        return retinanet_loss_levels(cls, box, anchors_levels, *gt, num_classes=90,
+                                     use_match_kernel=kernel)
+
+    def fwd_bwd(kernel):
+        for t in cls + box:
+            t.grad = None
+        out = fwd(kernel)
+        (out["classification_loss"] + out["regression_loss"]).backward()
+
+    times = {}
+    for kernel in (False, True, True, False):
+        for name, fn in (("forward", fwd), ("forward+backward", fwd_bwd)):
+            times.setdefault((name, kernel), []).append(time_ms(lambda: fn(kernel), 5))
+    for name in ("forward", "forward+backward"):
+        k, p = np.mean(times[(name, True)]), np.mean(times[(name, False)])
+        log(f"[time] loss {name}, R50 head outputs, batch {TRAIN_BATCH}, 800x1344, 90 classes: "
+            f"match kernel {k:.3f} ms, plain composition {p:.3f} ms "
+            f"(each the mean of 2 turns: {times[(name, True)]} / {times[(name, False)]})")
+
+
+def time_train_stages(dev, model, trainer, batch, retinanet_loss_levels) -> None:
+    """Where a training step's time goes (CUDA events, after warm-up): the
+    upload of the batch, the forward, the loss, the backward, and the
+    optimizer step as the whole step on an uploaded batch minus those."""
+    net, module = model.net, model.net.module
+    on_card = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    images = on_card["images"]
+    gt = [on_card[k] for k in ("boxes", "labels", "valid")]
+    anchors = net._anchors_for(tuple(images.shape[1:3]))
+
+    def forward():
+        return module(images, return_levels=True)
+
+    def forward_loss():
+        out = retinanet_loss_levels(*forward(), anchors, *gt, num_classes=net.num_classes)
+        return out["classification_loss"] + out["regression_loss"]
+
+    def forward_loss_backward():
+        forward_loss().backward()
+        module.zero_grad(set_to_none=True)
+
+    t = {"upload": time_ms(lambda: {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}, 5),
+         "forward": time_ms(forward, 3), "forward+loss": time_ms(forward_loss, 3),
+         "forward+loss+backward": time_ms(forward_loss_backward, 3),
+         "step on the card": time_ms(lambda: trainer.train_step(on_card), 3)}
+    log(f"[time] train step stages, batch {TRAIN_BATCH}: upload {t['upload']:.2f} ms; forward "
+        f"{t['forward']:.2f}; loss {t['forward+loss'] - t['forward']:.2f}; backward "
+        f"{t['forward+loss+backward'] - t['forward+loss']:.2f}; optimizer and the rest "
+        f"{t['step on the card'] - t['forward+loss+backward']:.2f}; whole step on an uploaded "
+        f"batch {t['step on the card']:.2f} ms")
+
+
+def served_model(RetinaNetModel):
+    """The task model serving ``self.loader`` (the data slice is ROADMAP A8)."""
+
+    class Served(RetinaNetModel):
+        loader = None
+
+        def prepare_data(self):
+            pass
+
+        def train_dataloader(self, shard=0, num_shards=1):
+            return self.loader
+
+        def val_dataloader(self, shard=0, num_shards=1):
+            return None
+
+    return Served
+
+
+def train_main_path(Model, Trainer, ConfigDict, reset_launch_counts, kernels):
+    """Phase 7: R50-FPN Trainer.fit for TRAIN_STEPS steps at 800x1344."""
+    model = Model(ConfigDict(HPARAMS))
+    model.loader = seeded_batches(TRAIN_STEPS, TRAIN_BATCH, H, W, seed=7)
+    module = model.net.module
+    params0 = {k: p.detach().clone() for k, p in module.named_parameters()}
+    buffers0 = {k: b.clone() for k, b in module.named_buffers()}
+    trainer = Trainer(max_steps=TRAIN_STEPS, warmup_steps=500, gradient_clip_val=None,
+                      log_every_n_steps=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.time()
+    trainer.fit(model)
+    torch.cuda.synchronize()
+    fit_s = time.time() - t0
+    launches = {k.name: k.wrapper.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    meters = trainer.logger_.meters
+    losses = meters["loss"].window
+    log(f"[train] R50-FPN, 90 classes, {TRAIN_STEPS} steps of {TRAIN_BATCH} x 800x1344 uint8 in "
+        f"{fit_s:.1f} s (first step included); launches {launches}")
+    log(f"[train] per-step loss {['%.5f' % v for v in losses]}; classification "
+        f"{['%.5f' % v for v in meters['classification_loss'].window]}; regression "
+        f"{['%.5f' % v for v in meters['regression_loss'].window]}")
+    if launches["match_targets"] != 5 * TRAIN_STEPS:
+        raise SystemExit(f"training launched match_targets {launches['match_targets']} times, "
+                         f"not 5 x {TRAIN_STEPS}")
+    if trainer.global_step != TRAIN_STEPS or len(losses) != TRAIN_STEPS \
+            or not np.isfinite(losses).all():
+        raise SystemExit(f"training ran {trainer.global_step} steps with losses {losses}")
+    still = [k for k, p in module.named_parameters() if torch.equal(p.detach(), params0[k])]
+    if still:
+        raise SystemExit(f"{len(still)} parameters did not change, e.g. {still[:3]}")
+    moved = [k for k, b in module.named_buffers() if not torch.equal(b, buffers0[k])]
+    if moved:
+        raise SystemExit(f"BN statistics changed: {moved[:3]}")
+    log(f"[train] all {len(params0)} parameters changed; all {len(buffers0)} BN buffers unchanged; "
+        f"peak memory {peak / 2**30:.1f} GiB")
+    return model, trainer, launches["match_targets"], peak
+
+
+def train_card_vs_cpu(Model, Trainer, ConfigDict):
+    """Phase 8: one f32 resnet18 step on the card (match kernel) and on the
+    CPU (plain composition) from the same weights and batch."""
+    hp = ConfigDict(HPARAMS).merge({
+        "model": {"backbone_kind": "resnet18", "min_size": 128, "max_size": 192,
+                  "compute_dtype": "float32", "prior": 0.1, "seed": 3},
+        "optimizer": {"params": {"lr": 0.01}}})
+    rng = np.random.default_rng(8)
+    boxes, labels, valid = seeded_gt(rng, [5, 0], 128, 192)
+    batch = {"images": rng.random((2, 128, 192, 3), dtype=np.float32), "boxes": boxes,
+             "labels": labels, "valid": valid}
+    models = {d: Model(hp, device=d) for d in ("cuda", "cpu")}
+    models["cpu"].net.load_state_dict({k: v.cpu() for k, v in models["cuda"].net.state_dict().items()})
+    before = {k: p.detach().clone() for k, p in models["cpu"].net.module.named_parameters()}
+    loss, after = {}, {}
+    for d, m in models.items():
+        m.loader = [batch]
+        t = Trainer(max_steps=1, warmup_steps=0, log_every_n_steps=1, num_sanity_val_steps=0)
+        t.fit(m)
+        loss[d] = t.logger_.meters["loss"].value
+        after[d] = {k: p.detach().cpu() for k, p in m.net.module.named_parameters()}
+    rel = {}
+    for k, p0 in before.items():
+        du_card, du_cpu = after["cuda"][k] - p0, after["cpu"][k] - p0
+        rel[k] = float((du_card - du_cpu).abs().max()) / max(float(du_cpu.abs().max()), 1e-12)
+    worst = sorted(rel, key=rel.get, reverse=True)[:3]
+    report = ", ".join(f"{k} {rel[k]:.2e}" for k in worst)
+    if abs(loss["cuda"] - loss["cpu"]) > STEP_LOSS_RTOL * abs(loss["cpu"]) \
+            or rel[worst[0]] > STEP_UPDATE_TOL:
+        raise SystemExit(f"train step card vs CPU: loss {loss['cuda']} vs {loss['cpu']}; update "
+                         f"differences of the tensor's largest, worst: {report}")
+    log(f"[train] f32 resnet18 128x192 step, card (match kernel) vs CPU (plain): loss "
+        f"{loss['cuda']:.7f} vs {loss['cpu']:.7f} (limit {STEP_LOSS_RTOL} rel); parameter "
+        f"updates within {STEP_UPDATE_TOL} of each tensor's largest, worst: {report}")
+
+
+def training_phases(dev, results) -> None:
+    """Phases 6-9: the match kernel, the training path and their times."""
+    from pytorch_retinanet_tpu_torch import KERNELS, ConfigDict, RetinaNetModel, Trainer
+    from pytorch_retinanet_tpu_torch.kernels import (
+        match_targets, match_targets_plain, reset_launch_counts,
+    )
+    from pytorch_retinanet_tpu_torch.ops import generate_anchors_per_level, retinanet_loss_levels
+
+    # 6. Match kernel against its plain version at the training shapes.
+    anchors_levels = [torch.from_numpy(a).to(dev) for a in generate_anchors_per_level((H, W))]
+    match_gt = check_match_kernel(dev, results, match_targets, match_targets_plain, anchors_levels)
+
+    # 7. The training path, and 8. one step on the card against the CPU.
+    Model = served_model(RetinaNetModel)
+    model, trainer, n_match, train_peak = train_main_path(
+        Model, Trainer, ConfigDict, reset_launch_counts, KERNELS)
+    results["match_targets"]["launches"] = n_match
+    train_card_vs_cpu(Model, Trainer, ConfigDict)
+
+    # 9. Times of the training path.
+    mt = results["match_targets"]
+    mt["ms"] = time_ms(lambda: [match_targets(a, *match_gt) for a in anchors_levels], 20)
+    mt["plain_ms"] = time_ms(lambda: [match_targets_plain(a, *match_gt) for a in anchors_levels], 3)
+    mt["library_ms"] = None  # no single PyTorch call computes the match and its targets
+    n_anchors = sum(a.shape[0] for a in anchors_levels)
+    pairs = float(match_gt[2].sum()) * n_anchors  # IoU pairs of this run's valid GT rows
+    match_bytes = (n_anchors * 16 + TRAIN_BATCH * MAX_GT * (16 + 4 + 1)
+                   + TRAIN_BATCH * n_anchors * (4 + 4 + 16))
+    mt["bound_ms"], mt["bound_by"] = max(
+        (match_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+        (pairs * 12 / F32_FLOPS * 1e3, "operations"),
+    )
+    log_kernel_time(mt)
+    time_loss_arms(dev, anchors_levels, match_gt, retinanet_loss_levels)
+    time_train_stages(dev, model, trainer, model.loader[0], retinanet_loss_levels)
+    step_s = []
+    for batch in model.loader[:5]:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t0)
+    step = float(np.median(step_s))
+    log(f"[e2e] train step R50-FPN batch {TRAIN_BATCH} 800x1344 (forward, loss, backward, SGD): "
+        f"median {step * 1e3:.1f} ms over 5 -> {TRAIN_BATCH / step:.1f} img/s; peak memory of "
+        f"the fit {train_peak / 2**30:.1f} GiB")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card only",
@@ -108,8 +418,8 @@ def main() -> int:
 
     # 1. Build.
     t0 = time.time()
-    libs = build(["stem", "nms"])
-    log(f"[build] both kernels built in {time.time() - t0:.1f} s")
+    libs = build(["stem", "nms", "match"])
+    log(f"[build] {len(libs)} kernels built in {time.time() - t0:.1f} s")
     for name, path in libs.items():
         for line in path.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "smem" in line:
@@ -157,10 +467,10 @@ def main() -> int:
     launches = {k.name: k.wrapper.launches for k in KERNELS}
     log(f"[predict] R50-FPN, 90 classes, 32 x 800x1333 -> bucket 800x1344 in {first_s:.3f} s; "
         f"launches {launches}")
-    for name, n in launches.items():
-        if n < 1:
-            raise SystemExit(f"main path never launched {name}")
-        results[name]["launches"] = n
+    for name in PREDICT_KERNELS:
+        if launches[name] < 1:
+            raise SystemExit(f"predict never launched {name}")
+        results[name]["launches"] = launches[name]
     for p in preds:
         b, s, lab = p["boxes"], p["scores"], p["labels"]
         if not (b.ndim == 2 and b.shape[1] == 4 and len(b) == len(s) == len(lab) > 0):
@@ -237,9 +547,8 @@ def main() -> int:
         (nms_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
         (pairs * 12 / F32_FLOPS * 1e3, "operations"),
     )
-    for r in results.values():
-        log(f"[time] {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
-            f"{r['library_ms']}, bound {r['bound_ms']:.4f} ms by {r['bound_by']})")
+    for name in PREDICT_KERNELS:
+        log_kernel_time(results[name])
 
     with torch.inference_mode():
         t_norm = time_ms(lambda: net.module.normalize(batch), 5)
@@ -255,6 +564,10 @@ def main() -> int:
         f"{BATCH / per_batch:.1f} img/s; forward (normalize+stem+trunk+FPN+head) "
         f"{t_net:.2f} ms, of which normalize {t_norm:.2f} ms; postprocess {t_post:.2f} ms; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    del net, gpu_net, cpu_net, batch, cls_l, box_l, x, out, ref
+    torch.cuda.empty_cache()
+
+    training_phases(dev, results)
 
     log(json.dumps({"kernels": [results[k.name] for k in KERNELS]}))
     print(smi)

@@ -1,20 +1,28 @@
 """RetinaNet in PyTorch for NVIDIA Hopper, ported from ``pytorch_retinanet_tpu``.
 
-The inference path (``Retinanet.predict``) runs on CUDA with hand-written
-kernels for the fused stem and greedy NMS (``kernels``); everything else is
+Inference (``Retinanet.predict``) and training (``Retinanet.forward``, the
+``Trainer``) run on CUDA with hand-written kernels for the fused stem,
+greedy NMS and the loss's anchor matching (``kernels``); everything else is
 plain PyTorch on cuDNN. The package imports neither JAX nor the JAX package.
 """
 
-from . import config, kernels, models, ops
+from . import config, data, engine, kernels, models, ops
+from .config import ConfigDict
+from .engine import RetinaNetModel, Trainer
 from .kernels import KERNELS
 from .models import Retinanet, RetinaNetModule, apply_detector, from_jax_variables
 
 __all__ = [
+    "ConfigDict",
     "KERNELS",
+    "RetinaNetModel",
     "RetinaNetModule",
     "Retinanet",
+    "Trainer",
     "apply_detector",
     "config",
+    "data",
+    "engine",
     "from_jax_variables",
     "kernels",
     "models",

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple, Tuple
 
+from .match import match_targets, match_targets_plain
 from .nms import nms_keep_mask, nms_keep_mask_plain
 from .stem import stem_forward, stem_plain, stem_supported
 
@@ -28,6 +29,9 @@ KERNELS: Tuple[Kernel, ...] = (
     Kernel("nms_keep_mask", nms_keep_mask, "cuda",
            "pytorch_retinanet_tpu_torch/csrc/nms.cu",
            "pytorch_retinanet_tpu/kernels/nms_pallas.py:115"),
+    Kernel("match_targets", match_targets, "cuda",
+           "pytorch_retinanet_tpu_torch/csrc/match.cu",
+           "pytorch_retinanet_tpu/kernels/match_pallas.py:221"),
 )
 
 
@@ -39,6 +43,8 @@ def reset_launch_counts() -> None:
 __all__ = [
     "KERNELS",
     "Kernel",
+    "match_targets",
+    "match_targets_plain",
     "nms_keep_mask",
     "nms_keep_mask_plain",
     "reset_launch_counts",

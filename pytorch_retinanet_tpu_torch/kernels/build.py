@@ -25,9 +25,10 @@ _COMMON_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-# The NMS IoU must round exactly like the reference: no contraction into FMA
-# and IEEE division.
-_EXTRA_FLAGS: Dict[str, List[str]] = {"nms": ["-fmad=false", "-prec-div=true"]}
+# The NMS and match IoUs (and the match encode) must round exactly like the
+# reference: no contraction into FMA and IEEE division.
+_EXACT = ["-fmad=false", "-prec-div=true"]
+_EXTRA_FLAGS: Dict[str, List[str]] = {"nms": _EXACT, "match": _EXACT}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

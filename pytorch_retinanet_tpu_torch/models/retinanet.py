@@ -1,6 +1,6 @@
 """RetinaNet: backbone -> FPN -> head, and the user-facing ``Retinanet``.
 
-Counterpart of ``pytorch_retinanet_tpu/models/retinanet.py`` for inference:
+Counterpart of ``pytorch_retinanet_tpu/models/retinanet.py``:
 
 * :class:`RetinaNetModule` takes a padded NHWC batch (f32 in [0, 1], or the
   uint8 wire format with /255 folded into the normalize constants) and
@@ -9,7 +9,9 @@ Counterpart of ``pytorch_retinanet_tpu/models/retinanet.py`` for inference:
   kernel when the shape and dtype allow it, and the module's own stem
   otherwise.
 * :class:`Retinanet` owns the weights and a device, resizes images on the
-  device into the orientation buckets, and returns detections as numpy.
+  device into the orientation buckets, and returns detections as numpy
+  (``predict``) or the training losses (``forward``, through the module's
+  own stem, as the JAX trainer does).
 """
 
 from __future__ import annotations
@@ -26,12 +28,15 @@ from torch import nn
 
 from .. import config as C
 from ..config import ifnone
+from ..data.loader import pad_targets
 from ..kernels.stem import stem_forward, stem_supported
 from ..ops import (
     Detections,
+    generate_anchors,
     generate_anchors_per_level,
     num_anchors_per_location,
     process_detections_multilevel_batch,
+    retinanet_loss,
 )
 from .backbone import RESNET_SPECS, BackBone, backbone_out_channels
 from .converter import from_jax_variables
@@ -238,6 +243,7 @@ class Retinanet:
             self._load_pretrained(pretrained_path)
         self.module.to(self.device, memory_format=torch.channels_last).eval()
         self._anchors: Dict[Tuple[int, int], List[Tensor]] = {}
+        self._flat_anchors: Dict[Tuple[int, int], Tensor] = {}
 
     def _load_pretrained(self, path: Optional[str]) -> None:
         if not path or not os.path.exists(path):
@@ -310,6 +316,85 @@ class Retinanet:
                     "labels": labels[row, :n],
                 }
         return out  # type: ignore[return-value]
+
+    # ------------------------------------------------------------------ #
+    def _loss_impl(self, images: Tensor, gt_boxes: Tensor, gt_labels: Tensor,
+                   gt_valid: Tensor) -> Dict[str, Tensor]:
+        """Losses of a padded batch through the module's own stem."""
+        cls_logits, box_deltas = self.module(images)
+        anchors = self._anchors_flat(tuple(images.shape[1:3]))
+        return retinanet_loss(cls_logits, box_deltas, anchors, gt_boxes, gt_labels, gt_valid,
+                              num_classes=self.num_classes)
+
+    def _anchors_flat(self, bucket: Tuple[int, int]) -> Tensor:
+        if bucket not in self._flat_anchors:
+            self._flat_anchors[bucket] = torch.from_numpy(generate_anchors(bucket)).to(self.device)
+        return self._flat_anchors[bucket]
+
+    def forward(self, images, targets) -> Dict[str, Tensor]:
+        """Training losses: ``{"classification_loss", "regression_loss"}``,
+        f32 scalars that carry gradients into every parameter.
+
+        Two input forms:
+          * a padded batch: ``images [B, H, W, 3]`` (uint8, or f32 in [0, 1])
+            and ``targets = {"boxes" [B, N, 4], "labels" [B, N], "valid"
+            [B, N]}``, tensors or numpy;
+          * the reference's ragged form: a list of HWC images and a list of
+            ``{"boxes" [n, 4], "labels" [n]}``, resized and padded here on
+            the device.
+
+        Frozen batch norm only: ``freeze_bn=False`` (live batch statistics)
+        is ROADMAP A7 and raises.
+        """
+        if not self.freeze_bn:
+            raise NotImplementedError(
+                "training with freeze_bn=False (live batch statistics) is ROADMAP A7; "
+                "build the detector with freeze_bn=True"
+            )
+        if isinstance(images, (list, tuple)):
+            images, targets = self._pad_ragged(images, targets)
+        dev = self.device
+        return self._loss_impl(
+            torch.as_tensor(images).to(dev),
+            torch.as_tensor(targets["boxes"]).to(dev),
+            torch.as_tensor(targets["labels"]).to(dev),
+            torch.as_tensor(targets["valid"]).to(dev),
+        )
+
+    __call__ = forward
+
+    def _pad_ragged(self, images, targets):
+        """Ragged images and targets -> a padded batch on the device.
+
+        Each image is resized on the device by the reference rule and its
+        boxes scaled by the same factors; the batch is padded to the largest
+        bucket in it, so a mixed-orientation list is letterboxed up to
+        max_size x max_size, as the JAX package does.
+        """
+        resized, boxes, labels, valid = [], [], [], []
+        for img, tgt in zip(images, targets):
+            img = (img if isinstance(img, Tensor) else torch.as_tensor(np.asarray(img))).to(self.device)
+            x, (new_h, new_w), (orig_h, orig_w), pad = resize_for_bucket(
+                img, self.min_size, self.max_size)
+            b = np.asarray(tgt["boxes"], np.float32).reshape(-1, 4)
+            if len(b):
+                sx, sy = new_w / orig_w, new_h / orig_h
+                b = b * np.array([sx, sy, sx, sy], np.float32)
+            pb, pl, pv = pad_targets(b, np.asarray(tgt["labels"]).reshape(-1), C.MAX_GT_BOXES)
+            resized.append((x, pad))
+            boxes.append(pb)
+            labels.append(pl)
+            valid.append(pv)
+        max_h = max(pad[0] for _, pad in resized)
+        max_w = max(pad[1] for _, pad in resized)
+        batch = torch.zeros((len(resized), max_h, max_w, 3), dtype=torch.float32, device=self.device)
+        for i, (x, _) in enumerate(resized):
+            batch[i, : x.shape[0], : x.shape[1]] = x
+        return batch, {
+            "boxes": torch.from_numpy(np.stack(boxes)).to(self.device),
+            "labels": torch.from_numpy(np.stack(labels)).to(self.device),
+            "valid": torch.from_numpy(np.stack(valid)).to(self.device),
+        }
 
     # ------------------------------------------------------------------ #
     def state_dict(self) -> Dict[str, Tensor]:

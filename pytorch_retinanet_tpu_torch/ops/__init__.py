@@ -1,4 +1,4 @@
-"""Box math, anchors and the detection postprocess, on tensors."""
+"""Box math, anchors, the matcher, the training losses and the detection postprocess, on tensors."""
 
 from .anchors import (
     feature_grid_sizes,
@@ -18,6 +18,8 @@ from .boxes import (
     small_box_mask,
     xyxy_to_cxcywh,
 )
+from .losses import retinanet_loss, retinanet_loss_levels, sigmoid_focal_loss, smooth_l1_loss
+from .matcher import BACKGROUND, IGNORE, MatchResult, match_anchors, match_anchors_batch
 from .nms import (
     Detections,
     merge_candidates,
@@ -31,7 +33,10 @@ from .nms import (
 )
 
 __all__ = [
+    "BACKGROUND",
     "Detections",
+    "IGNORE",
+    "MatchResult",
     "box_area",
     "box_iou",
     "clip_boxes",
@@ -42,6 +47,8 @@ __all__ = [
     "generate_anchors",
     "generate_anchors_per_level",
     "generate_cell_anchors",
+    "match_anchors",
+    "match_anchors_batch",
     "merge_candidates",
     "multilevel_candidates",
     "nms_keep_mask",
@@ -50,7 +57,11 @@ __all__ = [
     "process_detections_multilevel",
     "process_detections_multilevel_batch",
     "rescale_boxes",
+    "retinanet_loss",
+    "retinanet_loss_levels",
+    "sigmoid_focal_loss",
     "small_box_mask",
+    "smooth_l1_loss",
     "top_k",
     "unpack_detections",
     "xyxy_to_cxcywh",

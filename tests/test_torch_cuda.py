@@ -10,7 +10,9 @@ the repository's conftest (it sets JAX up):
 Tolerances: the stem kernel within 1 bf16 ulp of the larger value (+1e-6)
 per output, the plain version run with TF32 off (the f32 sums run in
 another order and can round to the neighbouring bf16 value); the NMS kernel
-exactly.
+exactly; the match kernel's matches, labels and centre targets exactly and
+its size targets (through ``logf``) within 2 f32 ulp; losses through the
+match kernel within 1e-6 relative of the plain composition's.
 """
 
 from __future__ import annotations
@@ -20,12 +22,15 @@ import pytest
 import torch
 
 from pytorch_retinanet_tpu_torch.kernels import (
+    match_targets,
+    match_targets_plain,
     nms_keep_mask,
     nms_keep_mask_plain,
     stem_forward,
     stem_plain,
 )
-from pytorch_retinanet_tpu_torch.models import RetinaNetModule, apply_detector
+from pytorch_retinanet_tpu_torch.models import Retinanet, RetinaNetModule, apply_detector
+from pytorch_retinanet_tpu_torch.ops import generate_anchors_per_level, retinanet_loss_levels
 
 pytestmark = pytest.mark.cuda
 
@@ -148,3 +153,95 @@ def test_fused_stem_path_portrait(dev):
         assert torch.isfinite(a).all()
         assert (a - b).abs().max() <= 2.0**-4 * b.abs().max()
         assert (a - c).abs().max() <= 2.0**-4 * c.abs().max()
+
+
+def _f32_ulp_distance(a: torch.Tensor, b: torch.Tensor) -> int:
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def _match_case(dev, b, a, n, n_valid, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    ctr = torch.rand((a, 2), generator=g) * 600
+    wh = 8 + torch.rand((a, 2), generator=g) * 250
+    anchors = torch.cat([ctr - wh / 2, ctr + wh / 2], -1)
+    gctr = torch.rand((b, n, 2), generator=g) * 600
+    gwh = 8 + torch.rand((b, n, 2), generator=g) * 300
+    gt = torch.cat([gctr - gwh / 2, gctr + gwh / 2], -1)
+    valid = torch.arange(n)[None] < torch.tensor(n_valid)[:, None]
+    gt = torch.where(valid[..., None], gt, torch.zeros_like(gt))
+    labels = torch.where(valid, torch.randint(1, 91, (b, n), generator=g), torch.zeros((b, n), dtype=torch.long))
+    if n >= 3 and n_valid[0] >= 3:  # a tie: row 2 repeats row 1, under anchor 0
+        gt[:, 2] = gt[:, 1]
+        anchors[0] = gt[0, 1]
+    return [t.to(dev) for t in (anchors, gt, labels, valid)]
+
+
+def _assert_match_equal(got, want):
+    for x, y, name in zip(got[:2], want[:2], ("matches", "fg_labels")):
+        assert x.dtype == y.dtype == torch.int32 and torch.equal(x, y), name
+    torch.testing.assert_close(got[2][..., :2], want[2][..., :2], rtol=0, atol=0, equal_nan=True,
+                               msg="centre targets")
+    assert _f32_ulp_distance(got[2][..., 2:], want[2][..., 2:]) <= 2, "size targets"
+
+
+# Partial anchor blocks (the block is 256), A smaller than one block, N not
+# a multiple of 8, one GT row, images without GT, and more rows than fit in
+# 48 KB of shared memory's default (N = 3000 -> 75 KB).
+@pytest.mark.parametrize("b,a,n,n_valid", [
+    (3, 1000, 13, [13, 0, 5]), (2, 37, 100, [100, 1]), (1, 256, 1, [1]), (2, 300, 8, [0, 0]),
+    (1, 700, 3000, [2500]),
+])
+def test_match_kernel_equals_plain(dev, b, a, n, n_valid):
+    case = _match_case(dev, b, a, n, n_valid)
+    before = match_targets.launches
+    got = match_targets(*case)
+    assert match_targets.launches == before + 1
+    want = match_targets_plain(*case)
+    _assert_match_equal(got, want)
+    if n >= 3 and n_valid[0] >= 3:
+        assert int(got[0][0, 0]) == 1  # the tie went to the first of the equal rows
+
+
+def test_match_kernel_takes_int64_labels_and_unaligned_views(dev):
+    anchors, gt, labels, valid = _match_case(dev, 2, 500, 20, [20, 7])
+    buf = torch.empty(anchors.numel() + 1, device=dev)
+    shifted = buf[1:].view(-1, 4)  # data_ptr 4 bytes off the 16-byte grid
+    shifted.copy_(anchors)
+    _assert_match_equal(match_targets(shifted, gt, labels.long(), valid),
+                        match_targets_plain(anchors, gt, labels, valid))
+
+
+def test_loss_through_the_match_kernel_equals_plain(dev):
+    g = torch.Generator().manual_seed(3)
+    anchors = [torch.from_numpy(a).to(dev) for a in generate_anchors_per_level((128, 192))]
+    cls = [(torch.randn((2, a.shape[0], 90), generator=g) * 2).to(dev) for a in anchors]
+    box = [(torch.randn((2, a.shape[0], 4), generator=g) * 0.3).to(dev) for a in anchors]
+    _, gt, labels, valid = _match_case(dev, 2, 1, 30, [30, 0], seed=4)
+    gt = gt * 0.3
+    before = match_targets.launches
+    ker = retinanet_loss_levels(cls, box, anchors, gt, labels, valid, num_classes=90)
+    assert match_targets.launches == before + 5
+    plain = retinanet_loss_levels(cls, box, anchors, gt, labels, valid, num_classes=90,
+                                  use_match_kernel=False)
+    assert match_targets.launches == before + 5
+    for k in ker:
+        torch.testing.assert_close(ker[k], plain[k], rtol=1e-6, atol=0)
+
+
+def test_forward_on_the_card_runs_the_match_kernel(dev):
+    net = Retinanet(backbone_kind="resnet18", num_classes=4, pretrained=False, min_size=64,
+                    max_size=96, prior=0.1)
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (2, 64, 96, 3), dtype=np.uint8)
+    boxes = np.zeros((2, 100, 4), np.float32)
+    boxes[0, :2] = [[10, 10, 40, 50], [30, 5, 90, 60]]
+    labels = np.zeros((2, 100), np.int32)
+    labels[0, :2] = [1, 3]
+    before = match_targets.launches
+    out = net.forward(images, {"boxes": boxes, "labels": labels, "valid": boxes[..., 2] > 0})
+    assert match_targets.launches == before + 1
+    (out["classification_loss"] + out["regression_loss"]).backward()
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in net.module.parameters())
