@@ -4,8 +4,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 NVIDIA Hopper card, ``nvcc`` and PyTorch built for CUDA; it never imports JAX
 or the JAX package. Phases, each of which fails the run on any fault:
 
-1. build the three kernels from ``pytorch_retinanet_tpu_torch/csrc`` (one
-   ``nvcc`` per source, in parallel) and print the card's name and power limit;
+1. build the five kernels (fused stem, NMS, match, fused bottleneck, top-2)
+   from ``pytorch_retinanet_tpu_torch/csrc`` (one ``nvcc`` per source, in
+   parallel) and print the card's name and power limit;
 2. fused stem kernel against ``stem_plain`` at [32, 800, 1344, 3];
 3. NMS kernel against ``nms_keep_mask_plain`` on dense synthetic clusters;
 4. the main path: R50-FPN ``Retinanet.predict`` on 32 seeded 800x1333 images
@@ -30,6 +31,31 @@ or the JAX package. Phases, each of which fails the run on any fault:
    without the kernel, the training step's stages, the training step
    (median of 5, host clock), peak memory.
 
+Then the opt-in fused trunk (``apply_detector(use_fused_trunk=True)``) and
+the top-2 kernel, on the batch and detector of phase 4:
+
+a. bottleneck kernel against ``bottleneck_plain`` at batch 32 at the three R50
+   stage shapes of the 800x1344 bucket and one whose H and W do not divide
+   the 8x8 tile, b1 drawn in [0.5, 1] so that conv2's zero padding matters,
+   rows 0 and H-1 held to the same tolerance as the rest;
+b. the gradient through the kernel's ``autograd.Function`` against autograd
+   through ``bottleneck_plain``, on a small shape;
+c. the fused-trunk forward of R50-FPN at [32, 800, 1344, 3] against the
+   module forward: c3/c4/c5 and every head output, within the bf16 depth
+   drift; the bottleneck launches read around that one forward (exactly 10);
+d. the fused-trunk predict: ``apply_detector(use_fused_trunk=True)`` and
+   ``process_detections_multilevel_batch``, as ``Retinanet._predict_impl``
+   composes them, every launch count read around it, its detections checked
+   as phase 4 checks them;
+e. top-2 kernel against ``top2_classes_plain``, exactly, at the five level
+   shapes of one 800x1344 image in bf16, on ties, and on phase d's level
+   logits reshaped to [32 * A_l, 90];
+f. times: the bottleneck kernel per stage and summed over the 10 blocks of a
+   forward, beside its bound, its plain version and the port's cuDNN
+   ``Bottleneck`` module; the top-2 kernel at [32 * 151200, 90] beside its
+   bound, plain version and ``torch.topk``; the trunk, the forward and the
+   predict composition through the fused trunk against the default path.
+
 The last lines are the ``kernels`` JSON, the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -53,6 +79,19 @@ F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 BATCH, H, W = 32, 800, 1344
 STEM_TOL = "|kernel - plain| <= 1 bf16 ulp of the larger value + 1e-6"
 PREDICT_KERNELS = ("fused_stem", "nms_keep_mask")
+# R50 identity blocks the fused trunk sends to the kernel at 800x1344:
+# (H, W, mid, blocks per forward) of layers 2, 3 and 4.
+BOTTLENECK_STAGES = ((100, 168, 128, 3), (50, 84, 256, 5), (25, 42, 512, 2))
+# The f32 sums run in another order than cuDNN's and flip bf16 roundings of
+# y1 and y2; a flip moves an output by a term of the output's scale, not of
+# the element's, so the bound adds one bf16 ulp of the largest output.
+BOTTLENECK_TOL = ("|kernel - plain| <= 1 bf16 ulp of the element + 1 bf16 ulp of the output's "
+                  "largest |value| (2**-8 of it) on every row, >= 90% exactly equal")
+# The fused trunk against the module: both round to bf16 after every conv or
+# BN, at other points, and one-ulp differences grow through 16 blocks, the
+# FPN and the head of a random R50.
+TRUNK_DRIFT = 2.0**-4
+TOP2_LEVELS = (151200, 37800, 9450, 2457, 693)
 MATCH_TOL = "matches, fg_labels and centre targets exact; tw, th within 2 f32 ulp"
 TRAIN_BATCH, TRAIN_STEPS, MAX_GT = 16, 7, 100
 # configs/hparams.yaml, written out: the card has no yaml.
@@ -115,6 +154,21 @@ def dense_clusters(gen: torch.Generator, batch: int, k: int, device) -> tuple:
     boxes = boxes + (cls * 4097.0)[..., None]
     valid = torch.rand((batch, k), generator=gen) < 0.9
     return boxes.to(device), valid.to(device)
+
+
+def check_detections(preds) -> None:
+    """Per image: boxes [n, 4], scores and labels [n], n > 0, finite, labels in
+    1..90, scores in (0.05, 1], boxes inside the 800x1333 image."""
+    for p in preds:
+        b, s, lab = p["boxes"], p["scores"], p["labels"]
+        if not (b.ndim == 2 and b.shape[1] == 4 and len(b) == len(s) == len(lab) > 0):
+            raise SystemExit(f"bad detection shapes {b.shape} {s.shape} {lab.shape}")
+        if not (np.isfinite(b).all() and np.isfinite(s).all()):
+            raise SystemExit("non-finite detections")
+        if not ((lab >= 1) & (lab <= 90)).all() or not ((s > 0.05) & (s <= 1)).all():
+            raise SystemExit("labels or scores out of range")
+        if (b < -1e-3).any() or (b[:, [0, 2]] > 1333 + 1e-2).any() or (b[:, [1, 3]] > 800 + 1e-2).any():
+            raise SystemExit("boxes outside the image")
 
 
 def log_kernel_time(r: dict) -> None:
@@ -393,6 +447,259 @@ def training_phases(dev, results) -> None:
         f"the fit {train_peak / 2**30:.1f} GiB")
 
 
+def bottleneck_case(dev, b: int, h: int, w: int, mid: int, seed: int) -> list:
+    """Seeded block inputs on the card: x [b, h, w, 4 mid] bf16, GEMM-layout
+    bf16 weights, folded BN with b1 in [0.5, 1]."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = 4 * mid
+
+    def u(lo, hi, n):
+        return lo + (hi - lo) * torch.rand(n, generator=g, device=dev)
+
+    def wt(*shape):
+        return (torch.randn(shape, generator=g, device=dev) * 0.05).to(torch.bfloat16)
+
+    x = torch.randn((b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
+    return [x, wt(c, mid), u(0.5, 1.5, mid), u(0.5, 1.0, mid), wt(9, mid, mid), u(0.5, 1.5, mid),
+            u(-0.2, 0.2, mid), wt(mid, c), u(0.5, 1.5, c), u(-0.2, 0.2, c)]
+
+
+def bottleneck_error(got: torch.Tensor, want: torch.Tensor):
+    """(max |diff|, per-row excess over BOTTLENECK_TOL, share exactly equal)."""
+    a, b = got.float(), want.float()
+    diff = (a - b).abs()
+    tol = bf16_ulp(torch.maximum(a.abs(), b.abs())) + 2.0**-8 * b.abs().max()
+    excess = (diff - tol).amax(dim=(0, 2, 3))
+    return diff.max().item(), excess, (diff == 0).float().mean().item()
+
+
+def cudnn_block(args, dev):
+    """The port's cuDNN ``Bottleneck`` module holding the same weights and BN
+    (weight = s, bias = b, mean 0, var 1 - eps): the library yardstick."""
+    from pytorch_retinanet_tpu_torch.models.backbone import Bottleneck
+
+    _, w1, s1, b1, w2, s2, b2, w3, s3, b3 = args
+    c, mid = w1.shape
+    block = Bottleneck(c, mid)
+    with torch.no_grad():
+        block.conv1.weight.copy_(w1.float().t().reshape(mid, c, 1, 1))
+        block.conv2.weight.copy_(w2.float().reshape(3, 3, mid, mid).permute(3, 2, 0, 1))
+        block.conv3.weight.copy_(w3.float().t().reshape(c, mid, 1, 1))
+        for bn, s, b in ((block.bn1, s1, b1), (block.bn2, s2, b2), (block.bn3, s3, b3)):
+            bn.weight.copy_(s)
+            bn.bias.copy_(b)
+            bn.running_var.fill_(1.0 - bn.eps)
+    return block.to(dev, memory_format=torch.channels_last).eval()
+
+
+def check_bottleneck_kernel(dev, results, fused_bottleneck, bottleneck_plain) -> list:
+    """Phase a: the kernel against its plain version at the stage shapes of
+    batch 32 and a ragged one. Returns the stage inputs, for the times."""
+    stage_args, err = [], 0.0
+    shapes = [(BATCH, h, w, mid) for h, w, mid, _ in BOTTLENECK_STAGES] + [(4, 13, 21, 128)]
+    for i, (b, h, w, mid) in enumerate(shapes):
+        args = bottleneck_case(dev, b, h, w, mid, seed=10 + i)
+        got = fused_bottleneck(*args)
+        want = bottleneck_plain(*args)
+        torch.cuda.synchronize()
+        e, excess, equal = bottleneck_error(got, want)
+        border = max(excess[0].item(), excess[-1].item())
+        log(f"[bottleneck] [{b}, {h}, {w}, {4 * mid}] mid {mid}: max |diff| {e:.4g}, worst row "
+            f"excess over the tolerance {excess.max().item():.3g} (rows 0 and H-1: {border:.3g}), "
+            f"{equal:.4f} exactly equal ({BOTTLENECK_TOL})")
+        if got.shape != want.shape or got.dtype != torch.bfloat16 or (excess > 0).any() \
+                or equal < 0.9:
+            raise SystemExit(f"bottleneck kernel disagrees with its plain version at {(b, h, w, mid)}")
+        err = max(err, e)
+        if b == BATCH:
+            stage_args.append(args)
+        del got, want
+    results["fused_bottleneck"]["max_abs_err"] = err
+
+    # b. The gradient through the autograd.Function against plain autograd.
+    args = bottleneck_case(dev, 2, 12, 20, 128, seed=20)
+    args = [t if i == 0 else t.float() for i, t in enumerate(args)]
+    ker = [t.clone().requires_grad_(True) for t in args]
+    ref = [t.clone().requires_grad_(True) for t in args]
+    cot = torch.randn(args[0].shape, device=dev)
+    (fused_bottleneck(*ker).float() * cot).sum().backward()
+    (bottleneck_plain(*ref).float() * cot).sum().backward()
+    worst = max(((a.grad - b.grad).abs().max() / b.grad.abs().max()).item() for a, b in zip(ker, ref))
+    if worst > 1e-3:
+        raise SystemExit(f"bottleneck gradient through the kernel differs by {worst:.3g} of the largest")
+    log(f"[bottleneck] gradient of x and the nine parameters through the kernel's autograd.Function "
+        f"equals plain autograd within {worst:.3g} of each gradient's largest (limit 1e-3: the "
+        f"backward recomputes through the plain version, where cuDNN may sum in another order)")
+    return stage_args
+
+
+def fused_predict(net, images, sizes, apply_detector, process_detections_multilevel_batch):
+    """``Retinanet._predict_impl`` through the opt-in fused trunk."""
+    cls_l, box_l = apply_detector(net.module, images, return_levels=True, use_fused_trunk=True)
+    det = process_detections_multilevel_batch(
+        cls_l, box_l, net._anchors_for(tuple(images.shape[1:3])), sizes,
+        score_thres=net.score_thres, nms_thres=net.nms_thres, max_detections=net.max_detections)
+    return det, cls_l
+
+
+def fused_trunk_phases(dev, results, net, batch, sizes) -> None:
+    """Phases a-f: the fused bottleneck and top-2 kernels, the fused trunk."""
+    from pytorch_retinanet_tpu_torch import KERNELS
+    from pytorch_retinanet_tpu_torch.kernels import (
+        bottleneck_args, bottleneck_plain, fused_bottleneck, reset_launch_counts, stem_forward,
+        top2_classes, top2_classes_plain,
+    )
+    from pytorch_retinanet_tpu_torch.models import apply_detector, apply_trunk_fused
+    from pytorch_retinanet_tpu_torch.ops import process_detections_multilevel_batch
+
+    stage_args = check_bottleneck_kernel(dev, results, fused_bottleneck, bottleneck_plain)
+
+    # c. The fused-trunk forward against the module forward, one batch of 32.
+    module = net.module
+    resnet = module.backbone.backbone
+    with torch.inference_mode():
+        scale, shift = resnet.bn1.folded()
+        stem = stem_forward(module.normalize(batch), resnet.conv1.weight, scale, shift)
+        module_feats = resnet(None, stem.permute(0, 3, 1, 2))
+        module_out = apply_detector(module, batch, return_levels=True)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        fused_out = apply_detector(module, batch, return_levels=True, use_fused_trunk=True)
+        torch.cuda.synchronize()
+        n_forward = fused_bottleneck.launches
+        fused_feats = apply_trunk_fused(resnet, stem, module.backbone_kind)
+    if n_forward != 10:
+        raise SystemExit(f"the fused-trunk forward launched the bottleneck kernel {n_forward} times, "
+                         f"not 10")
+    drift = {}
+    pairs = [(k, fused_feats[k], module_feats[k]) for k in ("c3", "c4", "c5")]
+    pairs += [(f"{kind} P{lvl + 3}", a, b) for kind, i in (("logits", 0), ("deltas", 1))
+              for lvl, (a, b) in enumerate(zip(fused_out[i], module_out[i]))]
+    for name, a, b in pairs:
+        a, b = a.float(), b.float()
+        if not torch.isfinite(a).all():
+            raise SystemExit(f"fused trunk: non-finite {name}")
+        drift[name] = ((a - b).abs().max() / b.abs().max()).item()
+    log(f"[trunk] R50-FPN {list(batch.shape)}, fused trunk vs module: 10 bottleneck launches in one "
+        f"forward; |fused - module| / max|module|: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in drift.items()) + f" (limit {TRUNK_DRIFT})")
+    if max(drift.values()) > TRUNK_DRIFT:
+        raise SystemExit("fused trunk drifts from the module forward beyond the bf16 depth drift")
+    del module_feats, fused_feats, module_out, fused_out
+
+    # d. The fused-trunk predict, the counted main path of this slice.
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with torch.inference_mode():
+        det, cls_l = fused_predict(net, batch, sizes, apply_detector,
+                                   process_detections_multilevel_batch)
+    torch.cuda.synchronize()
+    launches = {k.name: k.wrapper.launches for k in KERNELS}
+    log(f"[fused predict] R50-FPN batch {BATCH} through the fused trunk: launches {launches}")
+    for name in ("fused_stem", "fused_bottleneck", "nms_keep_mask"):
+        if launches[name] < 1:
+            raise SystemExit(f"the fused-trunk predict never launched {name}")
+    results["fused_bottleneck"]["launches"] = launches["fused_bottleneck"]
+    results["top2_classes"]["launches"] = launches["top2_classes"]  # off every path: 0
+    boxes, scores, labels, valid = (t.cpu().numpy() for t in det)
+    preds = [{"boxes": boxes[i][valid[i]], "scores": scores[i][valid[i]],
+              "labels": labels[i][valid[i]]} for i in range(BATCH)]
+    check_detections(preds)
+    log(f"[fused predict] detections per image: {[len(p['scores']) for p in preds[:8]]} ...")
+
+    # e. The top-2 kernel against its plain version, exactly.
+    g = torch.Generator(device=dev).manual_seed(30)
+    cases = [(f"level [{a}, 90]", (torch.randn((a, 90), generator=g, device=dev) * 2 - 4)
+              .to(torch.bfloat16)) for a in TOP2_LEVELS]
+    tie = torch.zeros((4096, 90), dtype=torch.bfloat16, device=dev)
+    tie[:, 7] = tie[:, 50] = tie[::3, 2] = 3.0
+    cases.append(("ties [4096, 90]", tie))
+    cases += [(f"fused predict P{lvl + 3} logits {tuple(c.reshape(-1, 90).shape)}", c.reshape(-1, 90))
+              for lvl, c in enumerate(cls_l)]
+    for name, logits in cases:
+        got, want = top2_classes(logits), top2_classes_plain(logits)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise SystemExit(f"top-2 kernel differs from plain on {name}")
+    if not ((got[1] != got[3]).all() and (got[0] >= got[2]).all()):
+        raise SystemExit("top-2 kernel: the two classes of a row coincide or are out of order")
+    log(f"[top2] kernel equals plain exactly on {', '.join(n for n, _ in cases)}")
+    results["top2_classes"]["max_abs_err"] = 0.0
+    del det, cls_l, cases
+
+    # f. Times.
+    bt = results["fused_bottleneck"]
+    tot = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms"), 0.0)
+    for (h, w, mid, blocks), args in zip(BOTTLENECK_STAGES, stage_args):
+        c = 4 * mid
+        block = cudnn_block(args, dev)
+        x_nchw = args[0].permute(0, 3, 1, 2)
+        with torch.inference_mode():
+            t = {"ms": time_ms(lambda: fused_bottleneck(*args), 10),
+                 "plain_ms": time_ms(lambda: bottleneck_plain(*args), 3),
+                 "library_ms": time_ms(lambda: block(x_nchw), 10)}
+        weights = (2 * c * mid + 9 * mid * mid) * 2 + (2 * mid + 2 * mid + 2 * c) * 4
+        t["bytes_ms"] = (2 * args[0].numel() * 2 + weights) / HBM_BYTES_PER_S * 1e3
+        t["ops_ms"] = 2.0 * BATCH * h * w * (2 * c * mid + 9 * mid * mid) / BF16_TENSOR_FLOPS * 1e3
+        t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+        log(f"[time] bottleneck [{BATCH}, {h}, {w}, {c}] mid {mid}: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f}, cuDNN Bottleneck module {t['library_ms']:.4f}, bound "
+            f"{t['bound_ms']:.4f} ms (bytes {t['bytes_ms']:.4f}, operations {t['ops_ms']:.4f}); "
+            f"{blocks} per forward")
+        for k in tot:
+            tot[k] += blocks * t[k]
+        del block
+    bt.update({k: tot[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")})
+    bt["bound_by"] = "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes"
+    log("[time] fused_bottleneck, the 10 blocks of one forward summed:")
+    log_kernel_time(bt)
+    del stage_args
+
+    tp = results["top2_classes"]
+    a = BATCH * TOP2_LEVELS[0]
+    logits = (torch.randn((a, 90), generator=g, device=dev) * 2 - 4).to(torch.bfloat16)
+    tp["ms"] = time_ms(lambda: top2_classes(logits), 20)
+    tp["plain_ms"] = time_ms(lambda: top2_classes_plain(logits), 3)
+    tp["library_ms"] = time_ms(lambda: torch.topk(logits, 2, dim=1), 10)
+    tp["bound_ms"], tp["bound_by"] = max(
+        ((logits.numel() * 2 + a * 16) / HBM_BYTES_PER_S * 1e3, "bytes"),
+        (2.0 * logits.numel() / F32_FLOPS * 1e3, "operations"),  # two compare scans
+    )
+    log(f"[time] top2_classes at [{a}, 90] bf16 (P3 of 32 images):")
+    log_kernel_time(tp)
+    del logits
+
+    # The trunk, the forward and the predict composition, fused trunk against
+    # the default path, in turns: default, fused, fused, default.
+    with torch.inference_mode():
+        stem_nchw = stem.permute(0, 3, 1, 2)
+        arms = {
+            "trunk": (lambda: resnet(None, stem_nchw),
+                      lambda: apply_trunk_fused(resnet, stem, module.backbone_kind)),
+            "forward": (lambda: apply_detector(module, batch, return_levels=True),
+                        lambda: apply_detector(module, batch, return_levels=True,
+                                               use_fused_trunk=True)),
+            "predict composition": (
+                lambda: net._predict_impl(batch, sizes),
+                lambda: fused_predict(net, batch, sizes, apply_detector,
+                                      process_detections_multilevel_batch)),
+        }
+        for name, (default, fused) in arms.items():
+            d1, f1, f2, d2 = (time_ms(fn, 5) for fn in (default, fused, fused, default))
+            d, f = (d1 + d2) / 2, (f1 + f2) / 2
+            extra = (f" -> {BATCH / d * 1e3:.1f} vs {BATCH / f * 1e3:.1f} img/s"
+                     if name == "predict composition" else "")
+            log(f"[time] {name}, batch {BATCH}, {H}x{W}: default {d:.3f} ms ({d1:.3f}, {d2:.3f}), "
+                f"fused trunk {f:.3f} ms ({f1:.3f}, {f2:.3f}){extra}")
+            if name == "trunk":
+                fused_blocks = [blk for stage, depth in ((2, 4), (3, 6), (4, 3))
+                                for blk in list(getattr(resnet, f"layer{stage}"))[1:depth]]
+                prep = time_ms(lambda: [bottleneck_args(blk) for blk in fused_blocks], 5)
+                log(f"[time] fused trunk, batch {BATCH}: the 10 kernel launches {tot['ms']:.3f} ms "
+                    f"(from the per-stage times), their arguments (BN fold, bf16 GEMM-layout "
+                    f"weights) {prep:.3f} ms, the 6 blocks left to cuDNN {f - tot['ms'] - prep:.3f} "
+                    f"ms (their module blocks {d - tot['library_ms']:.3f} ms)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card only",
@@ -418,7 +725,7 @@ def main() -> int:
 
     # 1. Build.
     t0 = time.time()
-    libs = build(["stem", "nms", "match"])
+    libs = build(["stem", "nms", "match", "bottleneck", "top2"])
     log(f"[build] {len(libs)} kernels built in {time.time() - t0:.1f} s")
     for name, path in libs.items():
         for line in path.with_suffix(".log").read_text().splitlines():
@@ -471,16 +778,7 @@ def main() -> int:
         if launches[name] < 1:
             raise SystemExit(f"predict never launched {name}")
         results[name]["launches"] = launches[name]
-    for p in preds:
-        b, s, lab = p["boxes"], p["scores"], p["labels"]
-        if not (b.ndim == 2 and b.shape[1] == 4 and len(b) == len(s) == len(lab) > 0):
-            raise SystemExit(f"bad detection shapes {b.shape} {s.shape} {lab.shape}")
-        if not (np.isfinite(b).all() and np.isfinite(s).all()):
-            raise SystemExit("non-finite detections")
-        if not ((lab >= 1) & (lab <= 90)).all() or not ((s > 0.05) & (s <= 1)).all():
-            raise SystemExit("labels or scores out of range")
-        if (b < -1e-3).any() or (b[:, [0, 2]] > 1333 + 1e-2).any() or (b[:, [1, 3]] > 800 + 1e-2).any():
-            raise SystemExit("boxes outside the image")
+    check_detections(preds)
     log(f"[predict] detections per image: {[len(p['scores']) for p in preds[:8]]} ...")
 
     # The same batch's NMS input, rebuilt outside the counted run.
@@ -564,7 +862,11 @@ def main() -> int:
         f"{BATCH / per_batch:.1f} img/s; forward (normalize+stem+trunk+FPN+head) "
         f"{t_net:.2f} ms, of which normalize {t_norm:.2f} ms; postprocess {t_post:.2f} ms; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    del net, gpu_net, cpu_net, batch, cls_l, box_l, x, out, ref
+    del gpu_net, cpu_net, cls_l, box_l, x, out, ref
+    torch.cuda.empty_cache()
+
+    fused_trunk_phases(dev, results, net, batch, sizes)
+    del net, batch
     torch.cuda.empty_cache()
 
     training_phases(dev, results)

@@ -9,8 +9,15 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple, Tuple
 
+from .bottleneck import (
+    bottleneck_args,
+    bottleneck_plain,
+    fused_bottleneck,
+    fused_bottleneck_supported,
+)
 from .match import match_targets, match_targets_plain
 from .nms import nms_keep_mask, nms_keep_mask_plain
+from .select import top2_classes, top2_classes_plain
 from .stem import stem_forward, stem_plain, stem_supported
 
 
@@ -32,6 +39,12 @@ KERNELS: Tuple[Kernel, ...] = (
     Kernel("match_targets", match_targets, "cuda",
            "pytorch_retinanet_tpu_torch/csrc/match.cu",
            "pytorch_retinanet_tpu/kernels/match_pallas.py:221"),
+    Kernel("fused_bottleneck", fused_bottleneck, "cuda",
+           "pytorch_retinanet_tpu_torch/csrc/bottleneck.cu",
+           "pytorch_retinanet_tpu/kernels/bottleneck_pallas.py:270"),
+    Kernel("top2_classes", top2_classes, "cuda",
+           "pytorch_retinanet_tpu_torch/csrc/top2.cu",
+           "pytorch_retinanet_tpu/kernels/select_pallas.py:105"),
 )
 
 
@@ -43,6 +56,10 @@ def reset_launch_counts() -> None:
 __all__ = [
     "KERNELS",
     "Kernel",
+    "bottleneck_args",
+    "bottleneck_plain",
+    "fused_bottleneck",
+    "fused_bottleneck_supported",
     "match_targets",
     "match_targets_plain",
     "nms_keep_mask",
@@ -51,4 +68,6 @@ __all__ = [
     "stem_forward",
     "stem_plain",
     "stem_supported",
+    "top2_classes",
+    "top2_classes_plain",
 ]

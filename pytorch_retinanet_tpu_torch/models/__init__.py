@@ -3,6 +3,7 @@
 from .backbone import RESNET_SPECS, BackBone, ResNet, backbone_out_channels
 from .converter import from_jax_variables
 from .fpn import FeaturePyramid
+from .fused_backbone import apply_trunk_fused, entry_bottleneck, fused_trunk_applicable
 from .head import RetinaNetHead
 from .retinanet import (
     RetinaNetModule,
@@ -23,9 +24,12 @@ __all__ = [
     "RetinaNetModule",
     "Retinanet",
     "apply_detector",
+    "apply_trunk_fused",
     "backbone_out_channels",
+    "entry_bottleneck",
     "from_jax_variables",
     "fused_stem_applicable",
+    "fused_trunk_applicable",
     "resize_for_bucket",
     "resize_to_bucket",
     "resolution_buckets",

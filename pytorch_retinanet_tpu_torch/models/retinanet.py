@@ -7,7 +7,9 @@ Counterpart of ``pytorch_retinanet_tpu/models/retinanet.py``:
   returns per-level logits and deltas.
 * :func:`apply_detector` is the inference forward: it runs the fused stem
   kernel when the shape and dtype allow it, and the module's own stem
-  otherwise.
+  otherwise; ``use_fused_trunk=True`` (off by default, as in the JAX
+  package) runs the trunk through the fused bottleneck kernel
+  (``models/fused_backbone.py``).
 * :class:`Retinanet` owns the weights and a device, resizes images on the
   device into the orientation buckets, and returns detections as numpy
   (``predict``) or the training losses (``forward``, through the module's
@@ -41,6 +43,7 @@ from ..ops import (
 from .backbone import RESNET_SPECS, BackBone, backbone_out_channels
 from .converter import from_jax_variables
 from .fpn import FeaturePyramid
+from .fused_backbone import apply_trunk_fused, fused_trunk_applicable
 from .head import RetinaNetHead
 
 Tensor = torch.Tensor
@@ -90,10 +93,15 @@ class RetinaNetModule(nn.Module):
         images: Tensor,
         return_levels: bool = False,
         stem_in: Optional[Tensor] = None,
+        feats_in: Optional[Dict[str, Tensor]] = None,
     ):
         """`stem_in`, when given, is the fused stem's NHWC output on the
-        already normalized images, and `images` is not read."""
-        if stem_in is None:
+        already normalized images; `feats_in`, when given, is the trunk's
+        {"c3", "c4", "c5"} (the fused trunk's) and the backbone is skipped.
+        Either way `images` is not read."""
+        if feats_in is not None:
+            feats = {k: v.to(self.dtype) for k, v in feats_in.items()}
+        elif stem_in is None:
             x = self.normalize(images).permute(0, 3, 1, 2).to(self.dtype)
             feats = self.backbone(x)
         else:
@@ -112,8 +120,14 @@ def apply_detector(
     *,
     return_levels: bool = False,
     use_fused_stem: Optional[bool] = None,
+    use_fused_trunk: bool = False,
 ):
-    """Inference forward, through the fused stem kernel where it applies."""
+    """Inference forward, through the fused stem kernel where it applies.
+
+    ``use_fused_trunk=True`` also runs the trunk through the fused
+    bottleneck kernel, as the JAX gate does: only in the fused-stem branch
+    and only for bottleneck ResNets (``fused_trunk_applicable``).
+    """
     if use_fused_stem is None:
         use_fused_stem = fused_stem_applicable(module, images.shape)
     if not use_fused_stem:
@@ -121,6 +135,9 @@ def apply_detector(
     resnet = module.backbone.backbone
     scale, shift = resnet.bn1.folded()
     stem = stem_forward(module.normalize(images), resnet.conv1.weight, scale, shift)
+    if use_fused_trunk and fused_trunk_applicable(module.backbone_kind):
+        feats = apply_trunk_fused(resnet, stem, module.backbone_kind)
+        return module(images, return_levels, feats_in=feats)
     return module(images, return_levels, stem_in=stem)
 
 

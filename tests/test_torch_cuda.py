@@ -12,7 +12,12 @@ per output, the plain version run with TF32 off (the f32 sums run in
 another order and can round to the neighbouring bf16 value); the NMS kernel
 exactly; the match kernel's matches, labels and centre targets exactly and
 its size targets (through ``logf``) within 2 f32 ulp; losses through the
-match kernel within 1e-6 relative of the plain composition's.
+match kernel within 1e-6 relative of the plain composition's; the bottleneck
+kernel within 1 bf16 ulp of the element plus 1 bf16 ulp (2**-8) of the
+output's largest value, on every row, border rows included (the f32 sums run
+in another order and flip bf16 roundings of y1 and y2, which move an output
+by a term of the output's scale, not of the element's), and at least 90% of
+the outputs equal; the top-2 kernel exactly.
 """
 
 from __future__ import annotations
@@ -22,12 +27,16 @@ import pytest
 import torch
 
 from pytorch_retinanet_tpu_torch.kernels import (
+    bottleneck_plain,
+    fused_bottleneck,
     match_targets,
     match_targets_plain,
     nms_keep_mask,
     nms_keep_mask_plain,
     stem_forward,
     stem_plain,
+    top2_classes,
+    top2_classes_plain,
 )
 from pytorch_retinanet_tpu_torch.models import Retinanet, RetinaNetModule, apply_detector
 from pytorch_retinanet_tpu_torch.ops import generate_anchors_per_level, retinanet_loss_levels
@@ -245,3 +254,119 @@ def test_forward_on_the_card_runs_the_match_kernel(dev):
     assert match_targets.launches == before + 1
     (out["classification_loss"] + out["regression_loss"]).backward()
     assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in net.module.parameters())
+
+
+def _bottleneck_case(dev, b, h, w, mid, seed=0, b1=(0.5, 1.0)):
+    """Seeded block inputs; b1 in [0.5, 1] makes conv2's zero padding matter."""
+    g = torch.Generator().manual_seed(seed)
+    c = 4 * mid
+
+    def u(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=g)
+
+    x = torch.randn((b, h, w, c), generator=g).to(torch.bfloat16)
+    args = [x, torch.randn((c, mid), generator=g) * 0.05, u(0.5, 1.5, mid), u(*b1, mid),
+            torch.randn((9, mid, mid), generator=g) * 0.05, u(0.5, 1.5, mid), u(-0.2, 0.2, mid),
+            torch.randn((mid, c), generator=g) * 0.05, u(0.5, 1.5, c), u(-0.2, 0.2, c)]
+    for i in (1, 4, 7):
+        args[i] = args[i].to(torch.bfloat16)
+    return [t.to(dev) for t in args]
+
+
+def _assert_bottleneck_close(got, want):
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    tol = torch.from_numpy(_bf16_ulp(torch.maximum(got.abs(), want.abs()).cpu().numpy())).to(d.device)
+    tol = tol + 2.0**-8 * want.abs().max()
+    per_row = (d - tol).amax(dim=(0, 2, 3))
+    assert (per_row <= 0).all(), per_row
+    assert (d == 0).float().mean() >= 0.9
+
+
+# The three R50 stage widths; 8x8 tiles that do not divide H, W or both; one
+# image row and one column.
+@pytest.mark.parametrize("b,h,w,mid", [(2, 8, 16, 128), (2, 13, 21, 128), (1, 25, 42, 512),
+                                       (2, 9, 7, 256), (1, 1, 5, 128), (1, 6, 1, 256)])
+def test_bottleneck_kernel_matches_plain(dev, b, h, w, mid):
+    args = _bottleneck_case(dev, b, h, w, mid)
+    before = fused_bottleneck.launches
+    got = fused_bottleneck(*args)
+    assert fused_bottleneck.launches == before + 1
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        want = bottleneck_plain(*args)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16 and got.is_contiguous()
+    _assert_bottleneck_close(got, want)
+
+
+def test_bottleneck_kernel_takes_the_channels_last_trunk_view(dev):
+    x, *rest = _bottleneck_case(dev, 2, 10, 12, 128)
+    nchw = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    view = nchw.permute(0, 2, 3, 1)
+    assert view.is_contiguous()
+    torch.testing.assert_close(fused_bottleneck(view, *rest), fused_bottleneck(x, *rest),
+                               rtol=0, atol=0)
+
+
+def test_bottleneck_kernel_gradient_recomputes_through_plain(dev):
+    args = _bottleneck_case(dev, 1, 6, 10, 128, seed=1)
+    args = [t.float() if t.dtype == torch.bfloat16 and i else t for i, t in enumerate(args)]
+    ker = [t.clone().requires_grad_(t.is_floating_point()) for t in args]
+    ref = [t.clone().requires_grad_(t.is_floating_point()) for t in args]
+    g = torch.randn(args[0].shape, device=dev)
+    # TF32 off for both backwards too: the kernel's recomputes through the plain version.
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        (fused_bottleneck(*ker).float() * g).sum().backward()
+        (bottleneck_plain(*ref).float() * g).sum().backward()
+    for a, b in zip(ker, ref):
+        # The same recompute on both sides: cuDNN may sum in another order.
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-3, atol=1e-3 * float(b.grad.abs().max()))
+
+
+def test_bottleneck_kernel_rejects_what_it_cannot_take(dev):
+    args = _bottleneck_case(dev, 1, 4, 4, 128)
+    with pytest.raises(ValueError):
+        fused_bottleneck(args[0].cpu(), *args[1:])  # a CPU/CUDA mix
+    with pytest.raises(TypeError):
+        fused_bottleneck(args[0].float(), *args[1:])
+    with pytest.raises(ValueError):
+        fused_bottleneck(*_bottleneck_case(dev, 1, 4, 4, 64))  # mid 64: not the kernel's tiling
+    with pytest.raises(ValueError):
+        fused_bottleneck(args[0], args[1], args[2][:64], *args[3:])
+
+
+# The five levels of one 800x1344 image, rows that do not fill the last CTA,
+# few classes, f32, and a row too wide for 256 rows of shared memory.
+@pytest.mark.parametrize("a,c,dtype", [(151200, 90, torch.bfloat16), (693, 90, torch.bfloat16),
+                                       (37, 90, torch.bfloat16), (1001, 13, torch.float32),
+                                       (8, 1, torch.float32), (300, 5000, torch.float32)])
+def test_top2_kernel_equals_plain(dev, a, c, dtype):
+    x = (torch.randn((a, c), generator=torch.Generator().manual_seed(a)) * 2 - 4).to(dev, dtype)
+    before = top2_classes.launches
+    got = top2_classes(x)
+    assert top2_classes.launches == before + 1
+    want = top2_classes_plain(x)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_top2_kernel_ties_and_unaligned_rows(dev):
+    x = torch.zeros((24, 17), dtype=torch.bfloat16, device=dev)
+    x[:, 3] = x[:, 11] = 5.0
+    v1, c1, v2, c2 = top2_classes(x)
+    assert (v1 == 5).all() and (c1 == 3).all() and (v2 == 5).all() and (c2 == 11).all()
+    flat = torch.randn(1 + 50 * 7, device=dev).to(torch.bfloat16)
+    view = flat[1:].view(50, 7)  # rows 2 bytes off the 16-byte grid
+    for g, w in zip(top2_classes(view), top2_classes_plain(view)):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError):
+        top2_classes(torch.zeros((7, 90), device=dev))
+
+
+def test_top2_kernel_constant_rows_and_extremes(dev):
+    """All-equal rows, -inf, and values below the -3e38 fill of the second scan."""
+    x = torch.zeros((16, 5), device=dev)
+    x[8:] = -float("inf")
+    x[12:, 2] = -3.3e38
+    for logits in (x, x.to(torch.bfloat16)):
+        for g, w in zip(top2_classes(logits), top2_classes_plain(logits)):
+            assert torch.equal(g, w)
