@@ -35,9 +35,13 @@ Then the opt-in fused trunk (``apply_detector(use_fused_trunk=True)``) and
 the top-2 kernel, on the batch and detector of phase 4:
 
 a. bottleneck kernel against ``bottleneck_plain`` at batch 32 at the three R50
-   stage shapes of the 800x1344 bucket and one whose H and W do not divide
-   the 8x8 tile, b1 drawn in [0.5, 1] so that conv2's zero padding matters,
-   rows 0 and H-1 held to the same tolerance as the rest;
+   stage shapes of the 800x1344 bucket, and at small batch at shapes whose H
+   and W do not divide the tile the kernel picks, one or more per mid (at
+   mid 512 an odd and an even number of tiles along W), b1 drawn in
+   [0.5, 1] so that conv2's zero padding matters, rows 0 and H-1 held to the
+   same tolerance as the rest; each stage's launch configuration (tile,
+   cluster size, CTAs, dynamic shared memory, CTAs per SM) and its
+   registers and spills from the ``-Xptxas -v`` log;
 b. the gradient through the kernel's ``autograd.Function`` against autograd
    through ``bottleneck_plain``, on a small shape;
 c. the fused-trunk forward of R50-FPN at [32, 800, 1344, 3] against the
@@ -52,7 +56,8 @@ e. top-2 kernel against ``top2_classes_plain``, exactly, at the five level
    logits reshaped to [32 * A_l, 90];
 f. times: the bottleneck kernel per stage and summed over the 10 blocks of a
    forward, beside its bound, its plain version and the port's cuDNN
-   ``Bottleneck`` module; the top-2 kernel at [32 * 151200, 90] beside its
+   ``Bottleneck`` module, with its achieved TFLOP/s (useful work) and the
+   weight bytes its CTAs stream through L2; the top-2 kernel at [32 * 151200, 90] beside its
    bound, plain version and ``torch.topk``; the trunk, the forward and the
    predict composition through the fused trunk against the default path.
 
@@ -492,12 +497,57 @@ def cudnn_block(args, dev):
     return block.to(dev, memory_format=torch.channels_last).eval()
 
 
+# Shapes whose H and W do not divide the kernel's tile (10x12 at mid 128 and
+# 256, 5x12 at mid 512): (batch, H, W, mid). At mid 512, 29 columns make 3
+# tiles along W and 40 make 4 (an odd and an even count along the dimension a
+# CTA cluster would pair).
+BOTTLENECK_RAGGED = ((4, 13, 21, 128), (2, 23, 29, 128), (2, 17, 31, 256), (2, 11, 29, 512),
+                     (2, 12, 40, 512))
+
+
+def bottleneck_build_report(log_text: str) -> dict:
+    """mid -> (registers, spill store bytes, spill load bytes) per kernel
+    instance, from the ``-Xptxas -v`` log that ``build.py`` keeps."""
+    import re
+
+    report, mid = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '.*bottleneck_kernelILi(\d+)E", line)
+        if m:
+            mid = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and mid is not None:
+            report.setdefault(mid, [None, 0, 0])[1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and mid is not None:
+            report.setdefault(mid, [None, 0, 0])[0] = int(m.group(1))
+    return {k: tuple(v) for k, v in report.items()}
+
+
+def log_bottleneck_config(shape, bottleneck_launch_config, build_report) -> dict:
+    b, h, w, mid = shape
+    cfg = bottleneck_launch_config(mid, h, w, b)
+    regs, st, ld = build_report.get(mid, (None, None, None))
+    log(f"[bottleneck] launch at [{b}, {h}, {w}, {4 * mid}] mid {mid}: tile {cfg['tile_h']}x"
+        f"{cfg['tile_w']}, cluster {cfg['cluster']}, {cfg['ctas']} CTAs of {cfg['threads']} threads, "
+        f"{cfg['smem_bytes']} B dynamic shared memory ({cfg['slots']} ring slots of "
+        f"{cfg['slot_bytes']} B), {cfg['ctas_per_sm']} CTA(s) per SM; {regs} registers at launch, "
+        f"{st} B spill stores, {ld} B spill loads")
+    return cfg
+
+
 def check_bottleneck_kernel(dev, results, fused_bottleneck, bottleneck_plain) -> list:
     """Phase a: the kernel against its plain version at the stage shapes of
-    batch 32 and a ragged one. Returns the stage inputs, for the times."""
+    batch 32 and ragged ones. Returns the stage inputs, for the times."""
+    from pytorch_retinanet_tpu_torch.kernels import bottleneck_launch_config
+    from pytorch_retinanet_tpu_torch.kernels.build import library_path
+
+    build_report = bottleneck_build_report(library_path("bottleneck").with_suffix(".log").read_text())
     stage_args, err = [], 0.0
-    shapes = [(BATCH, h, w, mid) for h, w, mid, _ in BOTTLENECK_STAGES] + [(4, 13, 21, 128)]
+    shapes = [(BATCH, h, w, mid) for h, w, mid, _ in BOTTLENECK_STAGES] + list(BOTTLENECK_RAGGED)
     for i, (b, h, w, mid) in enumerate(shapes):
+        if b == BATCH:
+            log_bottleneck_config((b, h, w, mid), bottleneck_launch_config, build_report)
         args = bottleneck_case(dev, b, h, w, mid, seed=10 + i)
         got = fused_bottleneck(*args)
         want = bottleneck_plain(*args)
@@ -522,8 +572,12 @@ def check_bottleneck_kernel(dev, results, fused_bottleneck, bottleneck_plain) ->
     ker = [t.clone().requires_grad_(True) for t in args]
     ref = [t.clone().requires_grad_(True) for t in args]
     cot = torch.randn(args[0].shape, device=dev)
-    (fused_bottleneck(*ker).float() * cot).sum().backward()
-    (bottleneck_plain(*ref).float() * cot).sum().backward()
+    # Both backwards recompute through the plain version; deterministic cuDNN
+    # algorithms keep the comparison about the autograd wiring.
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        (fused_bottleneck(*ker).float() * cot).sum().backward()
+        (bottleneck_plain(*ref).float() * cot).sum().backward()
     worst = max(((a.grad - b.grad).abs().max() / b.grad.abs().max()).item() for a, b in zip(ker, ref))
     if worst > 1e-3:
         raise SystemExit(f"bottleneck gradient through the kernel differs by {worst:.3g} of the largest")
@@ -531,6 +585,45 @@ def check_bottleneck_kernel(dev, results, fused_bottleneck, bottleneck_plain) ->
         f"equals plain autograd within {worst:.3g} of each gradient's largest (limit 1e-3: the "
         f"backward recomputes through the plain version, where cuDNN may sum in another order)")
     return stage_args
+
+
+def time_bottleneck_stages(dev, stage_args, fused_bottleneck, bottleneck_plain) -> dict:
+    """Per R50 stage at batch 32: the kernel (through its wrapper, weight
+    packing included), the weight packing alone, the plain version and the
+    port's cuDNN ``Bottleneck`` module, beside the bound, the achieved
+    TFLOP/s of useful work and the weight bytes the CTAs stream through L2.
+    Returns the sums over the 10 blocks of a forward."""
+    from pytorch_retinanet_tpu_torch.kernels import (
+        bottleneck_launch_config, pack_bottleneck_weights,
+    )
+
+    tot = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms"), 0.0)
+    for (h, w, mid, blocks), args in zip(BOTTLENECK_STAGES, stage_args):
+        c = 4 * mid
+        block = cudnn_block(args, dev)
+        x_nchw = args[0].permute(0, 3, 1, 2)
+        with torch.inference_mode():
+            t = {"ms": time_ms(lambda: fused_bottleneck(*args), 10),
+                 "plain_ms": time_ms(lambda: bottleneck_plain(*args), 3),
+                 "library_ms": time_ms(lambda: block(x_nchw), 10)}
+            pack_ms = time_ms(lambda: pack_bottleneck_weights(args[1], args[4], args[7]), 10)
+        weights = (2 * c * mid + 9 * mid * mid) * 2 + (2 * mid + 2 * mid + 2 * c) * 4
+        flops = 2.0 * BATCH * h * w * (2 * c * mid + 9 * mid * mid)
+        t["bytes_ms"] = (2 * args[0].numel() * 2 + weights) / HBM_BYTES_PER_S * 1e3
+        t["ops_ms"] = flops / BF16_TENSOR_FLOPS * 1e3
+        t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+        ctas = bottleneck_launch_config(mid, h, w, BATCH)["ctas"]
+        l2_gb = ctas * 34 * mid * mid / 1e9
+        log(f"[time] bottleneck [{BATCH}, {h}, {w}, {c}] mid {mid}: kernel {t['ms']:.4f} ms "
+            f"({flops / t['ms'] / 1e9:.1f} TFLOP/s of useful work, {ctas} CTAs stream "
+            f"{l2_gb:.2f} GB of weights through L2; weight packing alone {pack_ms:.4f} ms), plain "
+            f"{t['plain_ms']:.4f}, cuDNN Bottleneck module {t['library_ms']:.4f}, bound "
+            f"{t['bound_ms']:.4f} ms (bytes {t['bytes_ms']:.4f}, operations {t['ops_ms']:.4f}); "
+            f"{blocks} per forward")
+        for k in tot:
+            tot[k] += blocks * t[k]
+        del block
+    return tot
 
 
 def fused_predict(net, images, sizes, apply_detector, process_detections_multilevel_batch):
@@ -628,26 +721,7 @@ def fused_trunk_phases(dev, results, net, batch, sizes) -> None:
 
     # f. Times.
     bt = results["fused_bottleneck"]
-    tot = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms"), 0.0)
-    for (h, w, mid, blocks), args in zip(BOTTLENECK_STAGES, stage_args):
-        c = 4 * mid
-        block = cudnn_block(args, dev)
-        x_nchw = args[0].permute(0, 3, 1, 2)
-        with torch.inference_mode():
-            t = {"ms": time_ms(lambda: fused_bottleneck(*args), 10),
-                 "plain_ms": time_ms(lambda: bottleneck_plain(*args), 3),
-                 "library_ms": time_ms(lambda: block(x_nchw), 10)}
-        weights = (2 * c * mid + 9 * mid * mid) * 2 + (2 * mid + 2 * mid + 2 * c) * 4
-        t["bytes_ms"] = (2 * args[0].numel() * 2 + weights) / HBM_BYTES_PER_S * 1e3
-        t["ops_ms"] = 2.0 * BATCH * h * w * (2 * c * mid + 9 * mid * mid) / BF16_TENSOR_FLOPS * 1e3
-        t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
-        log(f"[time] bottleneck [{BATCH}, {h}, {w}, {c}] mid {mid}: kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f}, cuDNN Bottleneck module {t['library_ms']:.4f}, bound "
-            f"{t['bound_ms']:.4f} ms (bytes {t['bytes_ms']:.4f}, operations {t['ops_ms']:.4f}); "
-            f"{blocks} per forward")
-        for k in tot:
-            tot[k] += blocks * t[k]
-        del block
+    tot = time_bottleneck_stages(dev, stage_args, fused_bottleneck, bottleneck_plain)
     bt.update({k: tot[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")})
     bt["bound_by"] = "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes"
     log("[time] fused_bottleneck, the 10 blocks of one forward summed:")

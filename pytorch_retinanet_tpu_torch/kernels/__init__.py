@@ -11,9 +11,14 @@ from typing import Callable, NamedTuple, Tuple
 
 from .bottleneck import (
     bottleneck_args,
+    BOTTLENECK_TRACE_FIELDS,
+    bottleneck_launch_config,
+    bottleneck_phase_trace,
     bottleneck_plain,
+    bottleneck_weight_tiles,
     fused_bottleneck,
     fused_bottleneck_supported,
+    pack_bottleneck_weights,
 )
 from .match import match_targets, match_targets_plain
 from .nms import nms_keep_mask, nms_keep_mask_plain
@@ -54,16 +59,21 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
+    "BOTTLENECK_TRACE_FIELDS",
     "KERNELS",
     "Kernel",
     "bottleneck_args",
+    "bottleneck_launch_config",
+    "bottleneck_phase_trace",
     "bottleneck_plain",
+    "bottleneck_weight_tiles",
     "fused_bottleneck",
     "fused_bottleneck_supported",
     "match_targets",
     "match_targets_plain",
     "nms_keep_mask",
     "nms_keep_mask_plain",
+    "pack_bottleneck_weights",
     "reset_launch_counts",
     "stem_forward",
     "stem_plain",

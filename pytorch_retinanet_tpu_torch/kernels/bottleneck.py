@@ -4,14 +4,17 @@ Replaces ``pytorch_retinanet_tpu/kernels/bottleneck_pallas.py::fused_bottleneck`
 one stride-1 identity ResNet bottleneck, 1x1 (C -> mid) + BN + ReLU -> 3x3
 pad 1 (mid -> mid) + BN + ReLU -> 1x1 (mid -> C) + BN -> + x -> ReLU, on
 NHWC bf16 with frozen BN folded into per-channel ``scale`` and ``bias``. The
-three GEMMs run on the tensor cores (bf16 in, f32 accumulate) and both
-intermediates stay in shared memory; the source's header note gives the
-design and the bound.
+three GEMMs run on the tensor cores through ``wgmma`` (bf16 in, f32
+accumulate), both intermediates stay in shared memory, and the weights
+stream through a ring of shared-memory slots filled by bulk copies; the
+source's header note gives the design and the bound.
 
 Weights are in GEMM layout: ``w1`` [C, mid], ``w2`` tap-major [9, mid, mid]
 (tap ``3 * dy + dx``, rows the input channel), ``w3`` [mid, C]. These are the
 JAX kernel's HWIO weights reshaped; :func:`bottleneck_args` makes them from a
-port :class:`~..models.backbone.Bottleneck`.
+port :class:`~..models.backbone.Bottleneck`. Before each launch the wrapper
+packs them with :func:`pack_bottleneck_weights` into the order and layout in
+which the kernel copies them (:func:`bottleneck_weight_tiles`).
 
 The JAX kernel zero-pads the block's INPUT rows and runs conv1 over them, so
 its 3x3 reads ``relu(b1)`` instead of zero above the first and below the last
@@ -28,16 +31,17 @@ the XLA composition.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+import functools
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 Tensor = torch.Tensor
 
-# Widths the kernel's tiling takes: mid in 128-channel chunks, and at most
-# what fits its shared memory (y1 and y2 of one 8x8 tile at mid 512 are 179 KB).
-KERNEL_MID_STEP, KERNEL_MAX_MID = 128, 512
+# The widths the kernel is built for: the three of the R50 identity blocks
+# it fuses (layers 2, 3 and 4), one tile geometry each.
+KERNEL_MIDS = (128, 256, 512)
 
 
 def _pick_rows(
@@ -130,6 +134,57 @@ def bottleneck_args(block) -> Tuple[Tensor, ...]:
     return (w1, *block.bn1.folded(), w2, *block.bn2.folded(), w3, *block.bn3.folded())
 
 
+def bottleneck_weight_tiles(mid: int) -> List[Tuple[int, int, int, int, int]]:
+    """The kernel's weight tiles in the order its producer copies them.
+
+    Each is ``(weight, tap, k0, n0, n)``: rows ``k0 .. k0 + 63`` and columns
+    ``n0 .. n0 + n - 1`` of ``w1`` [C, mid] (weight 1, tap 0), ``w2[tap]``
+    [mid, mid] (weight 2) or ``w3`` [mid, C] (weight 3). conv1 takes 128 columns
+    at a time over all of C; conv2 takes min(mid, 256) columns, tap by tap;
+    conv3 256 columns at a time over all of mid.
+    """
+    c, n2 = 4 * mid, min(mid, 256)
+    tiles = [(1, 0, k0, n0, 128) for n0 in range(0, mid, 128) for k0 in range(0, c, 64)]
+    tiles += [(2, tap, k0, n0, n2) for tap in range(9) for k0 in range(0, mid, 64)
+              for n0 in range(0, mid, n2)]
+    tiles += [(3, 0, k0, n0, 256) for n0 in range(0, c, 256) for k0 in range(0, mid, 64)]
+    return tiles
+
+
+def _swizzle_tile(t: Tensor) -> Tensor:
+    """[n, 64] rows of 128 bytes (bf16) with the 128-byte swizzle: the 16-byte
+    chunk ``j`` of row ``r`` moves to chunk ``j ^ (r % 8)``. Its own inverse."""
+    n = t.shape[0]
+    idx = torch.arange(8, device=t.device)[None, :] ^ (torch.arange(n, device=t.device) % 8)[:, None]
+    return torch.gather(t.reshape(n, 8, 8), 1, idx[..., None].expand(n, 8, 8)).reshape(n, 64)
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_index(mid: int, device: torch.device) -> Tensor:
+    """For each element of the packed weights, its index in ``cat(w1, w2, w3)``
+    flattened: every tile of :func:`bottleneck_weight_tiles`, transposed to
+    [n, 64] (N rows of 64 K values) and swizzled, one after the other."""
+    c = 4 * mid
+    flat = torch.arange(2 * c * mid + 9 * mid * mid, dtype=torch.int64)
+    ws: Dict[int, Tensor] = {1: flat[:c * mid].view(1, c, mid),
+                             2: flat[c * mid:c * mid + 9 * mid * mid].view(9, mid, mid),
+                             3: flat[c * mid + 9 * mid * mid:].view(1, mid, c)}
+    parts = [_swizzle_tile(ws[which][tap, k0:k0 + 64, n0:n0 + n].t())
+             for which, tap, k0, n0, n in bottleneck_weight_tiles(mid)]
+    return torch.cat([t.reshape(-1) for t in parts]).to(device)
+
+
+def pack_bottleneck_weights(w1: Tensor, w2: Tensor, w3: Tensor) -> Tensor:
+    """w1 [C, mid], w2 [9, mid, mid], w3 [mid, C] -> one flat bf16 tensor of
+    the kernel's weight tiles (:func:`bottleneck_weight_tiles`), each [n, 64]
+    (K contiguous, 128 bytes a row) with the 128-byte swizzle applied, so that
+    one bulk copy puts a tile in shared memory in the layout ``wgmma`` reads.
+    A tile of width n starts 64 * n elements after the one before it."""
+    mid = w1.shape[1]
+    flat = torch.cat([w.detach().reshape(-1).to(torch.bfloat16) for w in (w1, w2, w3)])
+    return flat[_pack_index(mid, flat.device)]
+
+
 def _aligned(t: Tensor, dtype: torch.dtype) -> Tensor:
     """Contiguous in `dtype`, 16-byte aligned for the kernel's 16-byte copies."""
     t = t.detach().to(dtype).contiguous()
@@ -137,28 +192,66 @@ def _aligned(t: Tensor, dtype: torch.dtype) -> Tensor:
 
 
 def _launch(x: Tensor, w1: Tensor, s1: Tensor, b1: Tensor, w2: Tensor, s2: Tensor,
-            b2: Tensor, w3: Tensor, s3: Tensor, b3: Tensor) -> Tensor:
+            b2: Tensor, w3: Tensor, s3: Tensor, b3: Tensor, trace: Tensor = None) -> Tensor:
     from .build import load
 
     fn = load("bottleneck").bottleneck_forward
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     b, h, w, c = x.shape
     mid = w1.shape[1]
     xk = _aligned(x, torch.bfloat16)
-    ws = [_aligned(t, torch.bfloat16) for t in (w1, w2, w3)]
+    wpack = _aligned(pack_bottleneck_weights(w1, w2, w3), torch.bfloat16)
     vecs = [_aligned(t, torch.float32) for t in (s1, b1, s2, b2, s3, b3)]
     out = torch.empty((b, h, w, c), dtype=torch.bfloat16, device=x.device)
     if out.numel() == 0:
         return out
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(xk.data_ptr(), *(t.data_ptr() for t in ws), *(t.data_ptr() for t in vecs),
-                 out.data_ptr(), b, h, w, c, mid, stream)
+        err = fn(xk.data_ptr(), wpack.data_ptr(), *(t.data_ptr() for t in vecs),
+                 out.data_ptr(), b, h, w, c, mid, None if trace is None else trace.data_ptr(),
+                 stream)
     if err != 0:
         raise RuntimeError(f"bottleneck kernel launch failed with CUDA error {err}")
     fused_bottleneck.launches += 1
     return out
+
+
+def bottleneck_launch_config(mid: int, h: int, w: int, batch: int) -> Dict[str, int]:
+    """The kernel's launch at [batch, h, w, 4 mid] on the current card: its
+    tile, cluster size (1), CTAs, dynamic shared memory, CTAs per SM (CUDA's
+    occupancy calculator), ring slots and their bytes, threads per CTA."""
+    from .build import load
+
+    fn = load("bottleneck").bottleneck_config
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 9)()
+    err = fn(mid, h, w, batch, out)
+    if err != 0:
+        raise RuntimeError(f"bottleneck_config failed with CUDA error {err}")
+    keys = ("tile_h", "tile_w", "cluster", "ctas", "smem_bytes", "ctas_per_sm", "slots",
+            "slot_bytes", "threads")
+    return dict(zip(keys, list(out)))
+
+
+BOTTLENECK_TRACE_FIELDS = ("start_ns", "conv1_done_ns", "conv2_wgmma_done_ns", "y2_written_ns",
+                           "end_ns", "full_wait_cycles", "conv1_full_wait_cycles", "sm",
+                           "conv3_epilogue_ns", "conv1_epilogue_ns", "cycles")
+
+
+def bottleneck_phase_trace(*args: Tensor) -> Tensor:
+    """Launch the kernel once on CUDA inputs (the arguments of
+    :func:`fused_bottleneck`) with its phase trace on: [CTAs, 11] int64 on the
+    CPU, one row per CTA of the grid, fields ``BOTTLENECK_TRACE_FIELDS``
+    (global-timer ns stamps, cycles waited for weight slots, the SM)."""
+    b, h, w, _ = args[0].shape
+    ctas = bottleneck_launch_config(args[1].shape[1], h, w, b)["ctas"]
+    trace = torch.zeros((ctas, len(BOTTLENECK_TRACE_FIELDS)), dtype=torch.int64,
+                        device=args[0].device)
+    with torch.no_grad():
+        _launch(*args, trace=trace)
+    return trace.cpu()
 
 
 class _FusedBottleneck(torch.autograd.Function):
@@ -208,9 +301,8 @@ def fused_bottleneck(x: Tensor, w1: Tensor, s1: Tensor, b1: Tensor, w2: Tensor, 
                          f"{[str(t.device) for t in args]}")
     if x.dtype != torch.bfloat16:
         raise TypeError(f"fused bottleneck takes a bf16 activation on the card, got {x.dtype}")
-    if mid % KERNEL_MID_STEP or mid > KERNEL_MAX_MID:
-        raise ValueError(f"the bottleneck kernel takes mid a multiple of {KERNEL_MID_STEP} up to "
-                         f"{KERNEL_MAX_MID}, got {mid}")
+    if mid not in KERNEL_MIDS:
+        raise ValueError(f"the bottleneck kernel takes mid in {KERNEL_MIDS}, got {mid}")
     return _FusedBottleneck.apply(*args)
 
 

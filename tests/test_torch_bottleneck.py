@@ -25,6 +25,11 @@ Tolerances, per output element, with ``ulp(v)`` the bf16 spacing at |v| and
   one side and not on the other, so single elements can differ by the
   cotangent itself; and JAX runs the backward convs in bf16, the port in f32.
 
+The kernel's weight packing (``pack_bottleneck_weights``, a plain torch
+function) is held to its layout exactly: every tile unpacks to its slice of
+the GEMM-layout weight, and the tiles lie one after the other at 16-byte
+aligned offsets, as the kernel's bulk copies need.
+
 The Pallas kernel's rows 0 and H-1 are wrong: it zero-pads the block's
 input rows and runs conv1 over them, so its 3x3 reads relu(b1), not zero,
 above the first and below the last row. ``test_pallas_border_rows_deviate``
@@ -51,8 +56,10 @@ from pytorch_retinanet_tpu.kernels.bottleneck_pallas import (
 from pytorch_retinanet_tpu_torch.kernels import (
     bottleneck_args,
     bottleneck_plain,
+    bottleneck_weight_tiles,
     fused_bottleneck,
     fused_bottleneck_supported,
+    pack_bottleneck_weights,
 )
 from pytorch_retinanet_tpu_torch.models.backbone import Bottleneck
 
@@ -255,3 +262,45 @@ def test_bottleneck_args_lay_out_a_port_block():
         got = bottleneck_plain(torch.from_numpy(x.copy()), *kargs).float().numpy()
     excess = _excess(got, ref, REF_TOL)
     assert (excess <= 0).all(), excess
+
+
+def _gemm_weights(mid, seed=0):
+    c = 4 * mid
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=g).to(torch.bfloat16)
+            for shape in ((c, mid), (9, mid, mid), (mid, c))]
+
+
+@pytest.mark.parametrize("mid", [128, 256, 512])
+def test_packed_tiles_unpack_to_the_gemm_weights(mid):
+    """Tile (weight, tap, k0, n0, n) is n rows of 64 K values whose 16-byte
+    chunk j sits at chunk j ^ (row % 8); undone here with numpy indexing."""
+    w1, w2, w3 = _gemm_weights(mid)
+    packed = pack_bottleneck_weights(w1, w2, w3).view(torch.int16).numpy()
+    sources = {1: w1[None], 2: w2, 3: w3[None]}
+    k = np.arange(64)
+    offset = 0
+    for which, tap, k0, n0, n in bottleneck_weight_tiles(mid):
+        rows = packed[offset:offset + 64 * n].reshape(n, 64)
+        r = np.arange(n)[:, None]
+        logical = rows[r, ((k[None] // 8) ^ (r % 8)) * 8 + k[None] % 8]
+        want = sources[which][tap, k0:k0 + 64, n0:n0 + n].t().contiguous().view(torch.int16).numpy()
+        assert np.array_equal(logical, want), (which, tap, k0, n0)
+        offset += 64 * n
+
+
+@pytest.mark.parametrize("mid", [128, 256, 512])
+def test_packed_tiles_are_contiguous_and_aligned(mid):
+    w1, w2, w3 = _gemm_weights(mid, seed=1)
+    packed = pack_bottleneck_weights(w1, w2, w3)
+    assert packed.dtype == torch.bfloat16 and packed.dim() == 1
+    tiles = bottleneck_weight_tiles(mid)
+    sizes = [64 * n for *_, n in tiles]
+    offsets = np.cumsum([0] + sizes)
+    assert offsets[-1] == packed.numel() == 17 * mid * mid  # every weight element once
+    assert all(o * 2 % 16 == 0 and s * 2 % 16 == 0 for o, s in zip(offsets, sizes))
+    # Each weight is covered exactly once by its tiles.
+    counts = {1: torch.zeros(1, 4 * mid, mid), 2: torch.zeros(9, mid, mid), 3: torch.zeros(1, mid, 4 * mid)}
+    for which, tap, k0, n0, n in tiles:
+        counts[which][tap, k0:k0 + 64, n0:n0 + n] += 1
+    assert all(bool((t == 1).all()) for t in counts.values())

@@ -27,12 +27,15 @@ import pytest
 import torch
 
 from pytorch_retinanet_tpu_torch.kernels import (
+    BOTTLENECK_TRACE_FIELDS,
+    bottleneck_phase_trace,
     bottleneck_plain,
     fused_bottleneck,
     match_targets,
     match_targets_plain,
     nms_keep_mask,
     nms_keep_mask_plain,
+    pack_bottleneck_weights,
     stem_forward,
     stem_plain,
     top2_classes,
@@ -283,10 +286,14 @@ def _assert_bottleneck_close(got, want):
     assert (d == 0).float().mean() >= 0.9
 
 
-# The three R50 stage widths; 8x8 tiles that do not divide H, W or both; one
-# image row and one column.
+# The three R50 stage widths; shapes whose H and W do not divide the tile the
+# kernel picks (10x12 at mid 128 and 256, 5x12 at mid 512), or divide one of
+# them; at mid 512 an odd (29 columns) and an even (40) number of tiles along
+# W; batch 1 at the layer2 and layer3 shapes; one image row and one column.
 @pytest.mark.parametrize("b,h,w,mid", [(2, 8, 16, 128), (2, 13, 21, 128), (1, 25, 42, 512),
-                                       (2, 9, 7, 256), (1, 1, 5, 128), (1, 6, 1, 256)])
+                                       (2, 9, 7, 256), (1, 1, 5, 128), (1, 6, 1, 256),
+                                       (2, 23, 29, 128), (2, 17, 31, 256), (2, 12, 40, 512),
+                                       (2, 11, 29, 512), (1, 100, 168, 128), (1, 50, 84, 256)])
 def test_bottleneck_kernel_matches_plain(dev, b, h, w, mid):
     args = _bottleneck_case(dev, b, h, w, mid)
     before = fused_bottleneck.launches
@@ -296,6 +303,31 @@ def test_bottleneck_kernel_matches_plain(dev, b, h, w, mid):
         want = bottleneck_plain(*args)
     assert got.shape == want.shape and got.dtype == torch.bfloat16 and got.is_contiguous()
     _assert_bottleneck_close(got, want)
+
+
+def test_bottleneck_phase_trace_is_ordered(dev):
+    """One row per CTA (2 images x 3 x 3 tiles of 10x12), its stamps in phase
+    order, its waits within its cycles; the launch counts like any other."""
+    args = _bottleneck_case(dev, 2, 23, 29, 128)
+    before = fused_bottleneck.launches
+    trace = bottleneck_phase_trace(*args)
+    assert fused_bottleneck.launches == before + 1
+    assert trace.shape == (18, len(BOTTLENECK_TRACE_FIELDS))
+    f = {k: trace[:, i] for i, k in enumerate(BOTTLENECK_TRACE_FIELDS)}
+    stamps = [f[k] for k in ("start_ns", "conv1_done_ns", "conv2_wgmma_done_ns", "y2_written_ns",
+                             "end_ns")]
+    assert all(bool((a <= b).all()) for a, b in zip(stamps, stamps[1:]))
+    assert bool((0 <= f["conv1_full_wait_cycles"]).all())
+    assert bool((f["conv1_full_wait_cycles"] <= f["full_wait_cycles"]).all())
+    assert bool((f["full_wait_cycles"] < f["cycles"]).all())
+
+
+@pytest.mark.parametrize("mid", [128, 256, 512])
+def test_bottleneck_weight_packing_on_the_card_equals_the_cpu(dev, mid):
+    _, w1, _, _, w2, _, _, w3, _, _ = _bottleneck_case(dev, 1, 2, 2, mid)
+    got = pack_bottleneck_weights(w1, w2, w3)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), pack_bottleneck_weights(w1.cpu(), w2.cpu(), w3.cpu()))
 
 
 def test_bottleneck_kernel_takes_the_channels_last_trunk_view(dev):
@@ -330,6 +362,8 @@ def test_bottleneck_kernel_rejects_what_it_cannot_take(dev):
         fused_bottleneck(args[0].float(), *args[1:])
     with pytest.raises(ValueError):
         fused_bottleneck(*_bottleneck_case(dev, 1, 4, 4, 64))  # mid 64: not the kernel's tiling
+    with pytest.raises(ValueError):
+        fused_bottleneck(*_bottleneck_case(dev, 1, 4, 4, 384))  # built for mid 128, 256 and 512
     with pytest.raises(ValueError):
         fused_bottleneck(args[0], args[1], args[2][:64], *args[3:])
 
