@@ -7,15 +7,20 @@ or the JAX package. Phases, each of which fails the run on any fault:
 1. build the five kernels (fused stem, NMS, match, fused bottleneck, top-2)
    from ``pytorch_retinanet_tpu_torch/csrc`` (one ``nvcc`` per source, in
    parallel) and print the card's name and power limit;
-2. fused stem kernel against ``stem_plain`` at [32, 800, 1344, 3];
+2. fused stem kernel (normalize inside) against ``stem_plain`` at
+   [32, 800, 1344, 3] from uint8 (the predict path's wire format) and f32
+   images, and at ragged shapes (a small batch, the portrait bucket, a
+   width whose last pooled tile is partial);
 3. NMS kernel against ``nms_keep_mask_plain`` on dense synthetic clusters;
-4. the main path: R50-FPN ``Retinanet.predict`` on 32 seeded 800x1333 images
-   (the 800x1344 bucket), both launch counts read around that run alone,
-   then the NMS kernel against its plain version on that run's candidates,
-   and ``predict`` on the card against ``predict`` on the CPU at a small size;
-5. times (CUDA events after warm-up): the stem and NMS kernels beside their
-   bounds, plain versions and PyTorch yardsticks, and predict img/s at
-   batch 32;
+4. the main path: R50-FPN ``Retinanet.predict`` on 32 seeded 800x1333 uint8
+   images (the 800x1344 bucket, one uint8 batch), both launch counts read
+   around that run alone, the stem launched on uint8; then the NMS kernel
+   against its plain version on that run's candidates, the uint8 resize on
+   the card against the CPU's bit for bit, and ``predict`` on the card
+   against ``predict`` on the CPU at a small size (f32 and resized uint8);
+5. times (CUDA events after warm-up): the stem kernel from uint8 and f32 and
+   the NMS kernel beside their bounds, plain versions and PyTorch
+   yardsticks, and predict img/s at batch 32;
 6. match kernel against ``match_targets_plain`` at the training shapes:
    batch 16, the five levels of the 800x1344 bucket, 100 GT rows, seeded GT
    with 0, 1, a few and 100 valid rows and a constructed IoU tie;
@@ -84,6 +89,9 @@ F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 BATCH, H, W = 32, 800, 1344
 STEM_TOL = "|kernel - plain| <= 1 bf16 ulp of the larger value + 1e-6"
 PREDICT_KERNELS = ("fused_stem", "nms_keep_mask")
+# Ragged stem shapes: a small batch, the portrait bucket, and a width whose
+# last 16-wide pooled tile is partial (1000 / 4 = 250 = 15 x 16 + 10).
+STEM_RAGGED = ((3, 96, 132), (1, 1344, 800), (2, 128, 1000))
 # R50 identity blocks the fused trunk sends to the kernel at 800x1344:
 # (H, W, mid, blocks per forward) of layers 2, 3 and 4.
 BOTTLENECK_STAGES = ((100, 168, 128, 3), (50, 84, 256, 5), (25, 42, 512, 2))
@@ -642,7 +650,7 @@ def fused_trunk_phases(dev, results, net, batch, sizes) -> None:
         bottleneck_args, bottleneck_plain, fused_bottleneck, reset_launch_counts, stem_forward,
         top2_classes, top2_classes_plain,
     )
-    from pytorch_retinanet_tpu_torch.models import apply_detector, apply_trunk_fused
+    from pytorch_retinanet_tpu_torch.models import apply_detector, apply_trunk_fused, stem_constants
     from pytorch_retinanet_tpu_torch.ops import process_detections_multilevel_batch
 
     stage_args = check_bottleneck_kernel(dev, results, fused_bottleneck, bottleneck_plain)
@@ -652,7 +660,8 @@ def fused_trunk_phases(dev, results, net, batch, sizes) -> None:
     resnet = module.backbone.backbone
     with torch.inference_mode():
         scale, shift = resnet.bn1.folded()
-        stem = stem_forward(module.normalize(batch), resnet.conv1.weight, scale, shift)
+        stem = stem_forward(batch, *stem_constants(module, batch.dtype), resnet.conv1.weight,
+                            scale, shift)
         module_feats = resnet(None, stem.permute(0, 3, 1, 2))
         module_out = apply_detector(module, batch, return_levels=True)
         torch.cuda.synchronize()
@@ -781,11 +790,14 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from pytorch_retinanet_tpu_torch import KERNELS
+    from pytorch_retinanet_tpu_torch.config import MEAN, STD
     from pytorch_retinanet_tpu_torch.kernels import (
         nms_keep_mask, nms_keep_mask_plain, reset_launch_counts, stem_forward, stem_plain,
     )
     from pytorch_retinanet_tpu_torch.kernels.build import build
-    from pytorch_retinanet_tpu_torch.models.retinanet import Retinanet, apply_detector
+    from pytorch_retinanet_tpu_torch.models.retinanet import (
+        Retinanet, apply_detector, resize_for_bucket,
+    )
     from pytorch_retinanet_tpu_torch.ops import merge_candidates, multilevel_candidates
 
     dev = torch.device("cuda")
@@ -803,26 +815,36 @@ def main() -> int:
     log(f"[build] {len(libs)} kernels built in {time.time() - t0:.1f} s")
     for name, path in libs.items():
         for line in path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "smem" in line:
+            if "registers" in line or "smem" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
     results = {k.name: {"name": k.name, "route": k.route, "source": k.source,
                         "replaces": k.replaces} for k in KERNELS}
     gen = torch.Generator().manual_seed(0)
 
-    # 2. Stem kernel against its plain version at the main-path shape.
-    x = (torch.randn((BATCH, H, W, 3), generator=gen) * 1.5).to(dev)
+    # 2. Stem kernel against its plain version: the main-path shape from
+    # uint8 and from f32, then ragged shapes.
     w = (torch.randn((64, 3, 7, 7), generator=gen) * (2.0 / (64 * 49)) ** 0.5).to(dev)
     scale = (0.5 + torch.rand(64, generator=gen)).to(dev)
     bias = (torch.randn(64, generator=gen) * 0.3).to(dev)
-    out = stem_forward(x, w, scale, bias)
-    ref = stem_plain(x, w, scale, bias)
-    torch.cuda.synchronize()
-    err, n_bad = stem_error(out, ref)
-    log(f"[stem] kernel vs plain at {tuple(x.shape)}: max |diff| {err:.3g}, "
-        f"{n_bad} of {out.numel()} outside {STEM_TOL}")
-    if out.shape != (BATCH, H // 4, W // 4, 64) or out.dtype != torch.bfloat16 or n_bad:
-        raise SystemExit("stem kernel disagrees with its plain version")
+    mean8, std8 = tuple(m * 255.0 for m in MEAN), tuple(s * 255.0 for s in STD)
+    stem_in = {}
+    err = 0.0
+    for b, h, wd in [(BATCH, H, W)] + list(STEM_RAGGED):
+        raw = torch.randint(0, 256, (b, h, wd, 3), generator=gen, dtype=torch.uint8).to(dev)
+        for x, mean, std in ((raw, mean8, std8), (raw.float() / 255.0, MEAN, STD)):
+            out = stem_forward(x, mean, std, w, scale, bias)
+            ref = stem_plain(x, mean, std, w, scale, bias)
+            torch.cuda.synchronize()
+            e, n_bad = stem_error(out, ref)
+            log(f"[stem] kernel vs plain at {tuple(x.shape)} {x.dtype}: max |diff| {e:.3g}, "
+                f"{n_bad} of {out.numel()} outside {STEM_TOL}")
+            if out.shape != (b, h // 4, wd // 4, 64) or out.dtype != torch.bfloat16 or n_bad:
+                raise SystemExit("stem kernel disagrees with its plain version")
+            err = max(err, e)
+            if b == BATCH:
+                stem_in[x.dtype] = (x, mean, std)
+            del out, ref
     results["fused_stem"]["max_abs_err"] = err
 
     # 3. NMS kernel against its plain version on dense clusters.
@@ -852,12 +874,16 @@ def main() -> int:
         if launches[name] < 1:
             raise SystemExit(f"predict never launched {name}")
         results[name]["launches"] = launches[name]
+    if launches["fused_stem"] != 1 or stem_forward.last_dtype != torch.uint8:
+        raise SystemExit(f"predict of one batch launched fused_stem {launches['fused_stem']} "
+                         f"times, last on {stem_forward.last_dtype}, not once on uint8")
+    log("[predict] the one 800x1344 batch went through fused_stem as uint8")
     check_detections(preds)
     log(f"[predict] detections per image: {[len(p['scores']) for p in preds[:8]]} ...")
 
     # The same batch's NMS input, rebuilt outside the counted run.
-    batch = torch.zeros((BATCH, H, W, 3), device=dev)
-    batch[:, :800, :1333] = torch.from_numpy(np.stack(images)).to(dev).float() / 255.0
+    batch = torch.zeros((BATCH, H, W, 3), dtype=torch.uint8, device=dev)
+    batch[:, :800, :1333] = torch.from_numpy(np.stack(images)).to(dev)
     sizes = torch.tensor([[800.0, 1333.0]] * BATCH, device=dev)
     with torch.inference_mode():
         cls_l, box_l = apply_detector(net.module, batch, return_levels=True)
@@ -889,25 +915,69 @@ def main() -> int:
     log(f"[predict] f32 R50 128x192 on the card equals the CPU: labels exact, "
         f"boxes within 1e-2, scores within 1e-5")
 
-    # 5. Times.
+    # The same on two portrait uint8 images that need a resize (one uint8
+    # batch). Random weights put many scores within 1e-5 of each other, and
+    # such neighbours may trade places: the sorted scores agree within 1e-5,
+    # and labels and boxes at every rank whose score is 2e-5 from its
+    # neighbours' (the last of a full list only if nothing was cut below it).
+    small8 = [rng.integers(0, 256, (150, 100, 3), dtype=np.uint8) for _ in range(2)]
+    n_ranks = 0
+    for g, c in zip(gpu_net.predict(small8), cpu_net.predict(small8)):
+        go, co = (np.argsort(-d["scores"], kind="stable") for d in (g, c))
+        gs, cs = g["scores"][go], c["scores"][co]
+        if len(gs) != len(cs) or float(np.abs(gs - cs).max()) > 1e-5:
+            raise SystemExit("uint8 predict: sorted scores differ between the card and the CPU")
+        gap = np.minimum(np.abs(np.diff(cs, prepend=np.inf)), np.abs(np.diff(cs, append=-np.inf)))
+        apart = gap > 2e-5
+        apart[-1] &= len(cs) < gpu_net.max_detections  # the cut at 100 may fall between neighbours
+        if not np.array_equal(g["labels"][go][apart], c["labels"][co][apart]) or \
+                float(np.abs(g["boxes"][go][apart] - c["boxes"][co][apart]).max()) > 1e-2:
+            raise SystemExit("uint8 predict: labels or boxes differ between the card and the CPU")
+        n_ranks += int(apart.sum())
+    log(f"[predict] uint8 R50 150x100 -> 192x128 (resized on the device) on the card equals the "
+        f"CPU: sorted scores within 1e-5, labels exact and boxes within 1e-2 at the {n_ranks} "
+        f"ranks whose scores are 2e-5 from their neighbours'")
+
+    # The uint8 resize (cv2's fixed-point bilinear) on the card and the CPU.
+    photo = rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    on_card, hw, _, _ = resize_for_bucket(torch.from_numpy(photo).to(dev), 800, 1333,
+                                          wire_dtype=torch.uint8)
+    on_cpu, _, _, _ = resize_for_bucket(torch.from_numpy(photo), 800, 1333, wire_dtype=torch.uint8)
+    if hw != (800, 1067) or not torch.equal(on_card.cpu(), on_cpu):
+        raise SystemExit(f"uint8 resize to {hw}: card and CPU differ at "
+                         f"{int((on_card.cpu() != on_cpu).sum())} values")
+    log("[resize] uint8 (480, 640) -> (800, 1067): card equals CPU bit for bit")
+
+    # 5. Times. The stem from uint8 (the main path's input) goes into the
+    # kernels line; from f32 it is logged beside it.
     st = results["fused_stem"]
-    st["ms"] = time_ms(lambda: stem_forward(x, w, scale, bias), 20)
-    st["plain_ms"] = time_ms(lambda: stem_plain(x, w, scale, bias), 5)
     wcl = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-
-    def cudnn_stem():
-        xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)
-        y = torch.relu(F.conv2d(xb, wcl, stride=2, padding=3) * scale[:, None, None].bfloat16()
-                       + bias[:, None, None].bfloat16())
-        return F.max_pool2d(y, 3, 2, 1)
-
-    st["library_ms"] = time_ms(cudnn_stem, 20)
-    stem_bytes = x.numel() * 4 + out.numel() * 2 + w.numel() * 4 + 2 * 64 * 4
+    out_elems = BATCH * (H // 4) * (W // 4) * 64
     stem_flops = 2.0 * BATCH * (H // 2) * (W // 2) * 64 * 147
-    st["bound_ms"], st["bound_by"] = max(
-        (stem_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-        (stem_flops / BF16_TENSOR_FLOPS * 1e3, "operations"),
-    )
+    for dtype in (torch.float32, torch.uint8):
+        x, mean, std = stem_in[dtype]
+        mean_t, std_t = (torch.tensor(c, dtype=torch.float32, device=dev) for c in (mean, std))
+
+        def cudnn_stem():
+            xb = ((x.float() - mean_t) / std_t).to(torch.bfloat16).permute(0, 3, 1, 2)
+            y = torch.relu(F.conv2d(xb, wcl, stride=2, padding=3) * scale[:, None, None].bfloat16()
+                           + bias[:, None, None].bfloat16())
+            return F.max_pool2d(y, 3, 2, 1)
+
+        t = {"name": f"fused_stem from {str(dtype).split('.')[-1]}",
+             "ms": time_ms(lambda: stem_forward(x, mean, std, w, scale, bias), 20),
+             "plain_ms": time_ms(lambda: stem_plain(x, mean, std, w, scale, bias), 5),
+             "library_ms": time_ms(cudnn_stem, 20)}
+        stem_bytes = x.numel() * x.element_size() + out_elems * 2 + w.numel() * 4 + 2 * 64 * 4 + 6 * 4
+        t["bound_ms"], t["bound_by"] = max(
+            (stem_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+            (stem_flops / BF16_TENSOR_FLOPS * 1e3, "operations"),
+        )
+        log(f"[time] stem at {tuple(x.shape)} {x.dtype}, normalize inside (the library "
+            f"composition: normalize, cuDNN bf16 conv, BN, ReLU, max_pool2d):")
+        log_kernel_time(t)
+        if dtype == torch.uint8:
+            st.update({k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
     nm = results["nms_keep_mask"]
     nm["ms"] = time_ms(lambda: nms_keep_mask(offset_boxes, cvalid, 0.5), 50)
     nm["plain_ms"] = time_ms(lambda: nms_keep_mask_plain(offset_boxes, cvalid, 0.5), 3)
@@ -923,7 +993,6 @@ def main() -> int:
         log_kernel_time(results[name])
 
     with torch.inference_mode():
-        t_norm = time_ms(lambda: net.module.normalize(batch), 5)
         t_net = time_ms(lambda: apply_detector(net.module, batch, return_levels=True), 5)
         t_post = time_ms(lambda: net._predict_impl(batch, sizes), 5) - t_net
     times = []
@@ -933,10 +1002,10 @@ def main() -> int:
         times.append(time.time() - t0)
     per_batch = float(np.median(times))
     log(f"[e2e] predict batch 32: median {per_batch * 1e3:.1f} ms over 5 -> "
-        f"{BATCH / per_batch:.1f} img/s; forward (normalize+stem+trunk+FPN+head) "
-        f"{t_net:.2f} ms, of which normalize {t_norm:.2f} ms; postprocess {t_post:.2f} ms; "
+        f"{BATCH / per_batch:.1f} img/s; forward on the uint8 batch (stem with the normalize "
+        f"folded in+trunk+FPN+head) {t_net:.2f} ms; postprocess {t_post:.2f} ms; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    del gpu_net, cpu_net, cls_l, box_l, x, out, ref
+    del gpu_net, cpu_net, cls_l, box_l, x, stem_in
     torch.cuda.empty_cache()
 
     fused_trunk_phases(dev, results, net, batch, sizes)

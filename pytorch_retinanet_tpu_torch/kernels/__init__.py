@@ -23,7 +23,7 @@ from .bottleneck import (
 from .match import match_targets, match_targets_plain
 from .nms import nms_keep_mask, nms_keep_mask_plain
 from .select import top2_classes, top2_classes_plain
-from .stem import stem_forward, stem_plain, stem_supported
+from .stem import pack_stem_weights, stem_forward, stem_gemm_weights, stem_plain, stem_supported
 
 
 class Kernel(NamedTuple):
@@ -74,8 +74,10 @@ __all__ = [
     "nms_keep_mask",
     "nms_keep_mask_plain",
     "pack_bottleneck_weights",
+    "pack_stem_weights",
     "reset_launch_counts",
     "stem_forward",
+    "stem_gemm_weights",
     "stem_plain",
     "stem_supported",
     "top2_classes",

@@ -13,6 +13,7 @@ from .retinanet import (
     resize_for_bucket,
     resize_to_bucket,
     resolution_buckets,
+    stem_constants,
 )
 
 __all__ = [
@@ -33,4 +34,5 @@ __all__ = [
     "resize_for_bucket",
     "resize_to_bucket",
     "resolution_buckets",
+    "stem_constants",
 ]

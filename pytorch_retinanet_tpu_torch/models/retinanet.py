@@ -11,7 +11,8 @@ Counterpart of ``pytorch_retinanet_tpu/models/retinanet.py``:
   package) runs the trunk through the fused bottleneck kernel
   (``models/fused_backbone.py``).
 * :class:`Retinanet` owns the weights and a device, resizes images on the
-  device into the orientation buckets, and returns detections as numpy
+  device into the orientation buckets (uint8 images bit for bit as
+  ``cv2.resize`` does, and kept uint8), and returns detections as numpy
   (``predict``) or the training losses (``forward``, through the module's
   own stem, as the JAX trainer does).
 """
@@ -114,6 +115,15 @@ def fused_stem_applicable(module: RetinaNetModule, image_shape: Sequence[int]) -
     return module.dtype == torch.bfloat16 and stem_supported(image_shape)
 
 
+def stem_constants(module: RetinaNetModule, dtype: torch.dtype):
+    """The fused stem's (mean, std) for images of `dtype`: the module's, and
+    for the uint8 wire format with /255 folded in (in double, then f32 in the
+    kernel, as the JAX gate folds them)."""
+    if dtype == torch.uint8:
+        return tuple(m * 255.0 for m in module.mean), tuple(s * 255.0 for s in module.std)
+    return module.mean, module.std
+
+
 def apply_detector(
     module: RetinaNetModule,
     images: Tensor,
@@ -123,6 +133,9 @@ def apply_detector(
     use_fused_trunk: bool = False,
 ):
     """Inference forward, through the fused stem kernel where it applies.
+
+    The fused stem normalizes inside the kernel, from f32 images or from the
+    uint8 wire format; the module path normalizes in its own pass.
 
     ``use_fused_trunk=True`` also runs the trunk through the fused
     bottleneck kernel, as the JAX gate does: only in the fused-stem branch
@@ -134,7 +147,8 @@ def apply_detector(
         return module(images, return_levels)
     resnet = module.backbone.backbone
     scale, shift = resnet.bn1.folded()
-    stem = stem_forward(module.normalize(images), resnet.conv1.weight, scale, shift)
+    stem = stem_forward(images, *stem_constants(module, images.dtype), resnet.conv1.weight,
+                        scale, shift)
     if use_fused_trunk and fused_trunk_applicable(module.backbone_kind):
         feats = apply_trunk_fused(resnet, stem, module.backbone_kind)
         return module(images, return_levels, feats_in=feats)
@@ -163,33 +177,94 @@ def _resize_plan(orig_h: int, orig_w: int, min_size: int, max_size: int):
     return (new_h, new_w), (max(pad_h, new_h), max(pad_w, new_w))
 
 
+_COEF_SCALE = 2048  # cv2's INTER_RESIZE_COEF_SCALE: 11 fractional bits
+
+
+def _cv2_linear_taps(src: int, dst: int, clamp_weight: bool):
+    """cv2's fixed-point ``INTER_LINEAR`` taps along one axis: first and
+    second source index and their int16 weights, per destination index.
+
+    The source offset is computed in double and rounded to f32, its weights
+    are f32 and rounded half to even, as cv2 computes them. cv2 zeroes the
+    fraction where the first tap leaves the source only along x; along y it
+    clamps the row indices and keeps the weights.
+    """
+    scale = 1.0 / (dst / src)
+    f = ((np.arange(dst, dtype=np.float64) + 0.5) * scale - 0.5).astype(np.float32)
+    first = np.floor(f).astype(np.int64)
+    f = f - first.astype(np.float32)
+    if clamp_weight:
+        f = np.where((first < 0) | (first >= src - 1), np.float32(0), f)
+    i0 = np.clip(first, 0, src - 1)
+    i1 = np.clip(first + 1, 0, src - 1)
+    w0 = np.rint((np.float32(1) - f) * np.float32(_COEF_SCALE)).astype(np.int32)
+    w1 = np.rint(f * np.float32(_COEF_SCALE)).astype(np.int32)
+    return i0, i1, w0, w1
+
+
+def _resize_uint8_like_cv2(image: Tensor, new_h: int, new_w: int) -> Tensor:
+    """``cv2.resize(image, (new_w, new_h), interpolation=cv2.INTER_LINEAR)``
+    for an HWC uint8 tensor, bit for bit, in int32 on the image's device.
+
+    The horizontal pass sums exactly; the vertical one is cv2's vectorised
+    rounding, ``((S0 >> 4) * b0 >> 16) + ((S1 >> 4) * b1 >> 16) + 2 >> 2``.
+    """
+    h, w = int(image.shape[0]), int(image.shape[1])
+    dev = image.device
+
+    def taps(src, dst, clamp_weight):
+        return [torch.from_numpy(t).to(dev) for t in _cv2_linear_taps(src, dst, clamp_weight)]
+
+    x0, x1, a0, a1 = taps(w, new_w, True)
+    y0, y1, b0, b1 = taps(h, new_h, False)
+    rows = image.to(torch.int32)
+    hrow = rows[:, x0] * a0[None, :, None] + rows[:, x1] * a1[None, :, None]  # [h, new_w, C]
+    s0 = ((hrow[y0] >> 4) * b0[:, None, None]) >> 16
+    s1 = ((hrow[y1] >> 4) * b1[:, None, None]) >> 16
+    return ((s0 + s1 + 2) >> 2).clamp_(0, 255).to(torch.uint8)
+
+
 def resize_for_bucket(
-    image: Tensor, min_size: int, max_size: int
+    image: Tensor, min_size: int, max_size: int, *, wire_dtype: torch.dtype = torch.float32
 ) -> Tuple[Tensor, Tuple[int, int], Tuple[int, int], Tuple[int, int]]:
     """The reference resize rule on the device, without the bucket pad.
 
-    `image` is HWC, uint8 (scaled by 1/255) or float in [0, 1]. The resize is
-    bilinear with half-pixel centres and no antialias, as ``cv2.INTER_LINEAR``
-    is. Returns (resized HWC f32, resized (h, w), original (h, w), bucket
-    (pad_h, pad_w)).
+    `image` is HWC, uint8 or float in [0, 1]. A uint8 image is resized as
+    ``cv2.resize(INTER_LINEAR)`` resizes it, to the same uint8 values; a
+    float one bilinearly with half-pixel centres and no antialias, as cv2
+    does in float. `wire_dtype` is the dtype returned: ``torch.float32``
+    (uint8 values scaled by 1/255) or ``torch.uint8`` (float values scaled
+    by 255, clipped and truncated). Returns (resized HWC array in
+    `wire_dtype`, resized (h, w), original (h, w), bucket (pad_h, pad_w)).
     """
+    if wire_dtype not in (torch.float32, torch.uint8):
+        raise ValueError(f"wire_dtype must be torch.float32 or torch.uint8, got {wire_dtype}")
     orig_h, orig_w = int(image.shape[0]), int(image.shape[1])
     (new_h, new_w), pad = _resize_plan(orig_h, orig_w, min_size, max_size)
-    x = image.float() / 255.0 if image.dtype == torch.uint8 else image.float()
-    if (new_h, new_w) != (orig_h, orig_w):
+    same = (new_h, new_w) == (orig_h, orig_w)
+    if image.dtype == torch.uint8:
+        x = image if same else _resize_uint8_like_cv2(image, new_h, new_w)
+        if wire_dtype == torch.float32:
+            x = x.float() / 255.0
+        return x, (new_h, new_w), (orig_h, orig_w), pad
+    x = image.float()
+    if not same:
         x = F.interpolate(
             x.permute(2, 0, 1)[None], size=(new_h, new_w), mode="bilinear",
             align_corners=False, antialias=False,
         )[0].permute(1, 2, 0)
+    if wire_dtype == torch.uint8:
+        x = (x * 255.0).clamp_(0, 255).to(torch.uint8)
     return x, (new_h, new_w), (orig_h, orig_w), pad
 
 
 def resize_to_bucket(
-    image: Tensor, min_size: int, max_size: int
+    image: Tensor, min_size: int, max_size: int, *, wire_dtype: torch.dtype = torch.float32
 ) -> Tuple[Tensor, Tuple[int, int], Tuple[int, int]]:
-    """Resize and zero-pad into the orientation bucket: (padded HWC f32,
-    resized (h, w), original (h, w))."""
-    resized, new_hw, orig_hw, (pad_h, pad_w) = resize_for_bucket(image, min_size, max_size)
+    """Resize and zero-pad into the orientation bucket: (padded HWC array in
+    `wire_dtype`, resized (h, w), original (h, w))."""
+    resized, new_hw, orig_hw, (pad_h, pad_w) = resize_for_bucket(
+        image, min_size, max_size, wire_dtype=wire_dtype)
     out = resized.new_zeros((pad_h, pad_w, resized.shape[2]))
     out[: new_hw[0], : new_hw[1]] = resized
     return out, new_hw, orig_hw
@@ -304,6 +379,8 @@ class Retinanet:
 
         Images are resized on the device, grouped by orientation bucket, run
         one batch per bucket, and their boxes rescaled to each original size.
+        A bucket whose images are all uint8 runs as a uint8 batch (uint8
+        images resize to cv2's exact uint8 values); any other as f32.
         Returns per image ``{"boxes" [n, 4], "scores" [n], "labels" [n]}``.
         """
         out: List[Optional[Dict[str, np.ndarray]]] = [None] * len(images)
@@ -315,10 +392,15 @@ class Retinanet:
             groups.setdefault(pad, []).append(i)
 
         for (pad_h, pad_w), idxs in groups.items():
-            batch = torch.zeros((len(idxs), pad_h, pad_w, 3), dtype=torch.float32, device=self.device)
-            for row, i in enumerate(idxs):
-                image = torch.as_tensor(np.asarray(images[i])).to(self.device)
-                resized, (nh, nw), _, _ = resize_for_bucket(image, self.min_size, self.max_size)
+            arrays = [np.asarray(images[i]) for i in idxs]
+            # An all-uint8 group stays uint8 on the device (the wire format
+            # apply_detector normalizes from bytes); any other goes as f32.
+            wire = torch.uint8 if all(a.dtype == np.uint8 for a in arrays) else torch.float32
+            batch = torch.zeros((len(idxs), pad_h, pad_w, 3), dtype=wire, device=self.device)
+            for row, a in enumerate(arrays):
+                image = torch.as_tensor(a).to(self.device)
+                resized, (nh, nw), _, _ = resize_for_bucket(
+                    image, self.min_size, self.max_size, wire_dtype=wire)
                 batch[row, :nh, :nw] = resized
             sizes = torch.tensor([plans[i][0] for i in idxs], dtype=torch.float32, device=self.device)
             det = self._predict_impl(batch, sizes)
@@ -383,7 +465,8 @@ class Retinanet:
     def _pad_ragged(self, images, targets):
         """Ragged images and targets -> a padded batch on the device.
 
-        Each image is resized on the device by the reference rule and its
+        Each image is resized on the device by the reference rule into an f32
+        batch (a uint8 image to cv2's exact values, then /255), and its
         boxes scaled by the same factors; the batch is padded to the largest
         bucket in it, so a mixed-orientation list is letterboxed up to
         max_size x max_size, as the JAX package does.

@@ -8,7 +8,7 @@ the repository's conftest (it sets JAX up):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: the stem kernel within 1 bf16 ulp of the larger value (+1e-6)
-per output, the plain version run with TF32 off (the f32 sums run in
+per output, from uint8 and f32 images, the plain version run with TF32 off (the f32 sums run in
 another order and can round to the neighbouring bf16 value); the NMS kernel
 exactly; the match kernel's matches, labels and centre targets exactly and
 its size targets (through ``logf``) within 2 f32 ulp; losses through the
@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from pytorch_retinanet_tpu_torch.config import MEAN, STD
 from pytorch_retinanet_tpu_torch.kernels import (
     BOTTLENECK_TRACE_FIELDS,
     bottleneck_phase_trace,
@@ -41,7 +42,12 @@ from pytorch_retinanet_tpu_torch.kernels import (
     top2_classes,
     top2_classes_plain,
 )
-from pytorch_retinanet_tpu_torch.models import Retinanet, RetinaNetModule, apply_detector
+from pytorch_retinanet_tpu_torch.models import (
+    Retinanet,
+    RetinaNetModule,
+    apply_detector,
+    resize_for_bucket,
+)
 from pytorch_retinanet_tpu_torch.ops import generate_anchors_per_level, retinanet_loss_levels
 
 pytestmark = pytest.mark.cuda
@@ -59,24 +65,36 @@ def _bf16_ulp(v: np.ndarray) -> np.ndarray:
     return np.ldexp(np.float32(1.0), e - 8)
 
 
-def _stem_inputs(dev, b, h, w, seed=0):
+
+
+def _stem_inputs(dev, b, h, w, seed=0, dtype=torch.float32):
+    """Raw images and the stem's arguments: uint8 with the constants times
+    255 (the predict path's wire format), f32 in [0, 1] with the plain ones."""
     g = torch.Generator().manual_seed(seed)
-    x = torch.randn((b, h, w, 3), generator=g) * 1.5
+    if dtype == torch.uint8:
+        x = torch.randint(0, 256, (b, h, w, 3), generator=g, dtype=torch.uint8)
+        mean, std = tuple(m * 255.0 for m in MEAN), tuple(s * 255.0 for s in STD)
+    else:
+        x = torch.rand((b, h, w, 3), generator=g)
+        mean, std = MEAN, STD
     wt = torch.randn((64, 3, 7, 7), generator=g) * 0.05
     scale = 0.5 + torch.rand(64, generator=g)
     bias = torch.randn(64, generator=g) * 0.3
-    return [t.to(dev) for t in (x, wt, scale, bias)]
+    return [x.to(dev), mean, std] + [t.to(dev) for t in (wt, scale, bias)]
 
 
 # Landscape and portrait buckets, and shapes whose pooled map leaves partial
-# tiles (the tile is 8 x 7 pooled outputs) in height, width or both.
-@pytest.mark.parametrize("shape", [(2, 64, 96), (2, 96, 64), (1, 1344, 800), (1, 128, 36),
-                                   (3, 32, 4)])
+# tiles (the tile is 8 x 16 pooled outputs) in height, width or both.
+STEM_SHAPES = [(2, 64, 96), (2, 96, 64), (1, 1344, 800), (1, 128, 36), (3, 32, 4), (3, 96, 132),
+               (2, 800, 1344)]
+
+
+@pytest.mark.parametrize("shape", STEM_SHAPES)
 def test_stem_kernel_matches_plain(dev, shape):
     args = _stem_inputs(dev, *shape)
     before = stem_forward.launches
     got = stem_forward(*args).float().cpu().numpy()
-    assert stem_forward.launches == before + 1
+    assert stem_forward.launches == before + 1 and stem_forward.last_dtype == torch.float32
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         ref = stem_plain(*args).float().cpu().numpy()
     assert got.shape == ref.shape == (shape[0], shape[1] // 4, shape[2] // 4, 64)
@@ -84,24 +102,76 @@ def test_stem_kernel_matches_plain(dev, shape):
     assert (np.abs(got - ref) <= tol).all(), np.abs(got - ref).max()
 
 
+@pytest.mark.parametrize("shape", STEM_SHAPES)
+def test_stem_kernel_on_uint8_images_matches_plain(dev, shape):
+    args = _stem_inputs(dev, *shape, seed=1, dtype=torch.uint8)
+    before = stem_forward.launches
+    got = stem_forward(*args).float().cpu().numpy()
+    assert stem_forward.launches == before + 1 and stem_forward.last_dtype == torch.uint8
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        ref = stem_plain(*args).float().cpu().numpy()
+    tol = _bf16_ulp(np.maximum(np.abs(got), np.abs(ref))) + 1e-6
+    assert (np.abs(got - ref) <= tol).all(), np.abs(got - ref).max()
+
+
+def test_stem_kernel_takes_a_batch_view(dev):
+    """Image 1 of a batch: a view that starts one image into the storage."""
+    x, *rest = _stem_inputs(dev, 3, 32, 68, seed=2, dtype=torch.uint8)
+    got = stem_forward(x[1:], *rest)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        ref = stem_plain(x[1:], *rest)
+    a, b = got.float(), ref.float()
+    assert ((a - b).abs() <= torch.from_numpy(_bf16_ulp(np.maximum(
+        a.abs().cpu().numpy(), b.abs().cpu().numpy()))).to(dev) + 1e-6).all()
+
+
 def test_stem_kernel_gradient_recomputes_through_plain(dev):
-    x, wt, scale, bias = _stem_inputs(dev, 1, 32, 64)
-    w1 = wt.clone().requires_grad_(True)
-    w2 = wt.clone().requires_grad_(True)
+    x, mean, std, wt, scale, bias = _stem_inputs(dev, 1, 32, 64)
+    w1, x1 = wt.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    w2, x2 = wt.clone().requires_grad_(True), x.clone().requires_grad_(True)
     g = torch.randn((1, 8, 16, 64), device=dev)
-    (stem_forward(x, w1, scale, bias).float() * g).sum().backward()
-    (stem_plain(x, w2, scale, bias).float() * g).sum().backward()
+    (stem_forward(x1, mean, std, w1, scale, bias).float() * g).sum().backward()
+    (stem_plain(x2, mean, std, w2, scale, bias).float() * g).sum().backward()
     # cuDNN's weight gradient may sum in another order from call to call.
     torch.testing.assert_close(w1.grad, w2.grad, rtol=1e-3, atol=1e-3 * float(w2.grad.abs().max()))
+    torch.testing.assert_close(x1.grad, x2.grad, rtol=1e-3, atol=1e-3 * float(x2.grad.abs().max()))
+    # A uint8 image takes no gradient; the weights still get theirs.
+    x8, mean8, std8, _, _, _ = _stem_inputs(dev, 1, 32, 64, dtype=torch.uint8)
+    w3 = wt.clone().requires_grad_(True)
+    (stem_forward(x8, mean8, std8, w3, scale, bias).float() * g).sum().backward()
+    assert w3.grad is not None and torch.isfinite(w3.grad).all()
 
 
 def test_stem_kernel_rejects_what_it_cannot_take(dev):
-    x, wt, scale, bias = _stem_inputs(dev, 1, 48, 64)
+    x, mean, std, wt, scale, bias = _stem_inputs(dev, 1, 48, 64)
     with pytest.raises(ValueError):
-        stem_forward(x, wt, scale, bias)  # h % 32 != 0
-    x, wt, scale, bias = _stem_inputs(dev, 1, 32, 64)
+        stem_forward(x, mean, std, wt, scale, bias)  # h % 32 != 0
+    x, mean, std, wt, scale, bias = _stem_inputs(dev, 1, 32, 64)
     with pytest.raises(TypeError):
-        stem_forward(x.double(), wt, scale, bias)
+        stem_forward(x.double(), mean, std, wt, scale, bias)
+    with pytest.raises(ValueError):
+        stem_forward(x, mean, std, wt.cpu(), scale, bias)
+
+
+@pytest.mark.parametrize("hw", [(480, 640), (600, 400), (1600, 2666)])
+def test_uint8_resize_on_the_card_equals_the_cpu(dev, hw):
+    """cv2's fixed-point bilinear resize in int32: bit for bit on both."""
+    image = torch.randint(0, 256, (*hw, 3), generator=torch.Generator().manual_seed(3),
+                          dtype=torch.uint8)
+    got, new_hw, _, _ = resize_for_bucket(image.to(dev), 800, 1333, wire_dtype=torch.uint8)
+    want, want_hw, _, _ = resize_for_bucket(image, 800, 1333, wire_dtype=torch.uint8)
+    assert new_hw == want_hw and got.dtype == torch.uint8
+    assert torch.equal(got.cpu(), want)
+
+
+def test_predict_runs_the_stem_kernel_on_a_uint8_batch(dev):
+    net = Retinanet(backbone_kind="resnet18", num_classes=4, pretrained=False, min_size=64,
+                    max_size=96, prior=0.5)
+    images = [np.random.default_rng(4).integers(0, 256, (50, 70, 3), dtype=np.uint8)] * 2
+    before = stem_forward.launches
+    out = net.predict(images)
+    assert stem_forward.launches == before + 1 and stem_forward.last_dtype == torch.uint8
+    assert all(len(o["scores"]) > 0 for o in out)
 
 
 def _clusters(dev, b, k, seed=0):
@@ -156,7 +226,7 @@ def test_fused_stem_path_portrait(dev):
     with torch.inference_mode():
         fused = apply_detector(module, images, return_levels=True, use_fused_stem=True)
         scale, shift = resnet.bn1.folded()
-        stem = stem_plain(module.normalize(images), resnet.conv1.weight, scale, shift)
+        stem = stem_plain(images, module.mean, module.std, resnet.conv1.weight, scale, shift)
         same_stem = module(images, return_levels=True, stem_in=stem)
         cudnn_stem = apply_detector(module, images, return_levels=True, use_fused_stem=False)
     for a, b, c in zip(fused[0] + fused[1], same_stem[0] + same_stem[1],
@@ -345,8 +415,11 @@ def test_bottleneck_kernel_gradient_recomputes_through_plain(dev):
     ker = [t.clone().requires_grad_(t.is_floating_point()) for t in args]
     ref = [t.clone().requires_grad_(t.is_floating_point()) for t in args]
     g = torch.randn(args[0].shape, device=dev)
-    # TF32 off for both backwards too: the kernel's recomputes through the plain version.
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+    # TF32 off for both backwards too: the kernel's recomputes through the plain
+    # version. Deterministic cuDNN algorithms, as chip_smoke.py's phase b uses:
+    # a nondeterministic one has put the two sides 0.00154 apart.
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
         (fused_bottleneck(*ker).float() * g).sum().backward()
         (bottleneck_plain(*ref).float() * g).sum().backward()
     for a, b in zip(ker, ref):

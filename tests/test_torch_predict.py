@@ -5,8 +5,9 @@ The JAX ``Retinanet`` and the port's run with the same weights (random BN
 statistics too), carried across with the JAX package's reference-schema
 loader and the port's ``load_state_dict`` of JAX variables. The config is
 small (resnet18, 4 classes, min 64 / max 96, f32, prior 0.5 so there are
-detections) and the images are f32 at their bucket's size, so both resizes
-are the identity and every level takes JAX's exact ``top_k``.
+detections). ``test_predict_matches_jax`` feeds f32 images at their
+bucket's size, so both resizes are the identity; the uint8 tests resize
+with cv2 on the JAX side and with the port's integer emulation of it.
 
 Tolerances: labels and detection counts exactly equal; scores within 1e-5
 and boxes within 1e-3 px, since the f32 convs sum in another order on the
@@ -18,6 +19,7 @@ from __future__ import annotations
 import subprocess
 import sys
 
+import cv2
 import numpy as np
 import pytest
 import torch
@@ -30,7 +32,9 @@ KW = dict(num_classes=4, backbone_kind="resnet18", pretrained=False, min_size=64
           max_size=96, compute_dtype="float32", prior=0.5)
 
 
-def test_predict_matches_jax():
+def _twin_detectors():
+    """The port's and JAX's detectors with the same weights (random BN
+    statistics too), and the generator that drew the weights."""
     port = Retinanet(device="cpu", seed=0, **KW)
     rng = np.random.default_rng(0)
     sd = {}
@@ -44,6 +48,11 @@ def test_predict_matches_jax():
     ref = JaxRetinanet(seed=0, **KW)
     ref.load_state_dict(sd)  # reference schema -> JAX variables
     port.load_state_dict(ref.state_dict())  # JAX variables -> the port
+    return port, ref, rng
+
+
+def test_predict_matches_jax():
+    port, ref, rng = _twin_detectors()
 
     images = [rng.random((64, 96, 3), dtype=np.float32) for _ in range(2)]
     images.append(rng.random((96, 64, 3), dtype=np.float32))  # portrait bucket
@@ -71,10 +80,85 @@ def test_device_resize_matches_jax_resize(hw):
 
 
 def test_uint8_images_resize_like_scaled_floats():
+    """A uint8 image resizes to cv2's uint8 values exactly, and those stay
+    within 1/255 of the float bilinear resize of the same image scaled to
+    [0, 1] (cv2 rounds its fixed-point sum to an integer; the float path
+    does not round)."""
     raw = np.random.default_rng(2).integers(0, 256, (50, 70, 3), dtype=np.uint8)
-    a, *_ = resize_for_bucket(torch.from_numpy(raw), 64, 96)
+    a, new_hw, *_ = resize_for_bucket(torch.from_numpy(raw), 64, 96, wire_dtype=torch.uint8)
+    assert a.dtype == torch.uint8
+    np.testing.assert_array_equal(a.numpy(), cv2.resize(raw, new_hw[::-1], interpolation=cv2.INTER_LINEAR))
     b, *_ = resize_for_bucket(torch.from_numpy(raw.astype(np.float32) / 255.0), 64, 96)
-    torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+    torch.testing.assert_close(a.float() / 255.0, b, rtol=0, atol=1.0 / 255.0)
+
+
+# (image h, w, min_size, max_size): upscale, downscale, exact 2x down,
+# portrait, a shape cv2 and the float path round to the same size, identity.
+UINT8_RESIZES = [
+    (50, 70, 64, 96),        # -> (64, 90)
+    (480, 640, 800, 1333),   # -> (800, 1067)
+    (427, 640, 800, 1333),   # -> (800, 1199)
+    (600, 400, 800, 1333),   # -> (1200, 800), portrait
+    (1000, 1500, 800, 1333),  # -> (800, 1200)
+    (1600, 2666, 800, 1333),  # -> (800, 1333), exactly 2x down
+    (37, 53, 19, 27),        # -> (19, 27)
+    (64, 96, 64, 96),        # identity
+]
+
+
+@pytest.mark.parametrize("wire", ["uint8", "float32"])
+@pytest.mark.parametrize("h,w,min_size,max_size", UINT8_RESIZES)
+def test_uint8_resize_equals_jax_resize_bit_for_bit(h, w, min_size, max_size, wire):
+    """The port's integer emulation of cv2's fixed-point INTER_LINEAR
+    against JAX's ``resize_for_bucket`` (cv2 itself): the same uint8 values,
+    and with the f32 wire the same uint8 values / 255."""
+    raw = np.random.default_rng(h * w).integers(0, 256, (h, w, 3), dtype=np.uint8)
+    want, want_hw, want_orig, want_pad = jax_resize(raw, min_size, max_size, wire_dtype=np.dtype(wire))
+    got, got_hw, got_orig, got_pad = resize_for_bucket(
+        torch.from_numpy(raw), min_size, max_size, wire_dtype=getattr(torch, wire))
+    assert (got_hw, got_orig, got_pad) == (want_hw, want_orig, want_pad)
+    assert got.numpy().dtype == want.dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+    padded, new_hw, _ = resize_to_bucket(torch.from_numpy(raw), min_size, max_size,
+                                         wire_dtype=getattr(torch, wire))
+    assert padded.dtype == got.dtype and padded.shape[:2] == got_pad and new_hw == got_hw
+    assert torch.equal(padded[: got_hw[0], : got_hw[1]], got) and not padded[got_hw[0]:].any()
+
+
+@pytest.mark.parametrize("hw", [(50, 70), (120, 80)])
+def test_float_images_on_the_uint8_wire_match_jax(hw):
+    """Float in [0, 1] resized, then * 255, clipped and truncated to uint8:
+    the two float resizes agree within 1e-5, so a value lands on the other
+    side of an integer only by that much, at most 1 apart."""
+    image = np.random.default_rng(3).random((*hw, 3), dtype=np.float32)
+    want, *_ = jax_resize(image, 64, 96, wire_dtype=np.uint8)
+    got, *_ = resize_for_bucket(torch.from_numpy(image), 64, 96, wire_dtype=torch.uint8)
+    assert got.dtype == torch.uint8
+    assert np.abs(got.numpy().astype(int) - want.astype(int)).max() <= 1
+
+
+def test_resize_rejects_other_wire_dtypes():
+    with pytest.raises(ValueError, match="wire_dtype"):
+        resize_for_bucket(torch.zeros((8, 8, 3)), 8, 8, wire_dtype=torch.float16)
+
+
+def test_predict_on_uint8_images_that_need_a_resize_matches_jax():
+    """uint8 images that the bucket rule resizes, landscape and portrait.
+    JAX resizes with cv2 and runs an f32 batch of the uint8 values / 255;
+    the port resizes to the same uint8 values on its device and runs a uint8
+    batch with /255 folded into the normalize constants (mean * 255, std *
+    255), so the normalized inputs differ by the f32 rounding of the two
+    divisions. Tolerances as in ``test_predict_matches_jax``."""
+    port, ref, _ = _twin_detectors()
+    rng = np.random.default_rng(5)
+    images = [rng.integers(0, 256, (50, 70, 3), dtype=np.uint8) for _ in range(2)]
+    images.append(rng.integers(0, 256, (120, 80, 3), dtype=np.uint8))  # portrait bucket
+    got, want = port.predict(images), ref.predict(images)
+    for g, w in zip(got, want):
+        assert len(g["labels"]) == len(w["labels"]) > 0
+        np.testing.assert_array_equal(g["labels"], w["labels"])
+        np.testing.assert_allclose(g["scores"], w["scores"], rtol=0, atol=1e-5)
+        np.testing.assert_allclose(g["boxes"], w["boxes"], rtol=0, atol=1e-3)
 
 
 def test_retinanet_without_device_needs_cuda(monkeypatch):

@@ -5,8 +5,9 @@ Run from the root of a checkout on a machine with the card:
 (R50-FPN, 90 classes, prior 0.5, seed 0) and the same 32 seeded 800x1333
 images as ``chip_smoke.py``, then reports:
 
-1. stage times with CUDA events on the padded 800x1344 batch: normalize,
-   fused stem, ResNet trunk, FPN, head, postprocess;
+1. stage times with CUDA events on the padded 800x1344 uint8 batch (what
+   ``predict`` builds): fused stem (normalize inside), ResNet trunk, FPN,
+   head, postprocess;
 2. one ``torch.profiler`` trace of the device part of predict: device time
    by kernel family, the top kernels, and the device's busy share of the
    traced wall time;
@@ -32,7 +33,11 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from pytorch_retinanet_tpu_torch.models.retinanet import Retinanet, apply_detector  # noqa: E402
+from pytorch_retinanet_tpu_torch.models.retinanet import (  # noqa: E402
+    Retinanet,
+    apply_detector,
+    stem_constants,
+)
 from pytorch_retinanet_tpu_torch.kernels.stem import stem_forward  # noqa: E402
 
 BATCH, H, W = 32, 800, 1344
@@ -83,23 +88,23 @@ def main() -> int:
     images = [rng.integers(0, 256, (800, 1333, 3), dtype=np.uint8) for _ in range(BATCH)]
     net = Retinanet(backbone_kind="resnet50", num_classes=90, pretrained=False, prior=0.5, seed=0)
     dev = net.device
-    batch = torch.zeros((BATCH, H, W, 3), device=dev)
-    batch[:, :800, :1333] = torch.from_numpy(np.stack(images)).to(dev).float() / 255.0
+    batch = torch.zeros((BATCH, H, W, 3), dtype=torch.uint8, device=dev)
+    batch[:, :800, :1333] = torch.from_numpy(np.stack(images)).to(dev)
     sizes = torch.tensor([[800.0, 1333.0]] * BATCH, device=dev)
     m = net.module
     resnet = m.backbone.backbone
     out = {"card": smi}
 
     with torch.inference_mode():
-        x = m.normalize(batch)
+        consts = stem_constants(m, batch.dtype)
         sc, sh = resnet.bn1.folded()
-        stem = stem_forward(x, resnet.conv1.weight, sc, sh).permute(0, 3, 1, 2)
+        stem = stem_forward(batch, *consts, resnet.conv1.weight, sc, sh).permute(0, 3, 1, 2)
         feats = resnet(None, stem)
         pyr = m.fpn(feats)
         levels = m.retinanet_head(pyr, True)
         stages = {
-            "normalize": cuda_ms(lambda: m.normalize(batch)),
-            "fused stem kernel": cuda_ms(lambda: stem_forward(x, resnet.conv1.weight, sc, sh)),
+            "fused stem kernel": cuda_ms(lambda: stem_forward(batch, *consts, resnet.conv1.weight,
+                                                              sc, sh)),
             "trunk (layer1-4)": cuda_ms(lambda: resnet(None, stem)),
             "fpn": cuda_ms(lambda: m.fpn(feats)),
             "head": cuda_ms(lambda: m.retinanet_head(pyr, True)),
