@@ -11,7 +11,9 @@ or the JAX package. Phases, each of which fails the run on any fault:
    [32, 800, 1344, 3] from uint8 (the predict path's wire format) and f32
    images, and at ragged shapes (a small batch, the portrait bucket, a
    width whose last pooled tile is partial);
-3. NMS kernel against ``nms_keep_mask_plain`` on dense synthetic clusters;
+3. NMS kernel against ``nms_keep_mask_plain`` on dense synthetic clusters
+   at [32, 1000], at K = 63, 65 (partial 64-candidate chunks) and 4096, on
+   identical boxes (one long chain) and on disjoint ones (none);
 4. the main path: R50-FPN ``Retinanet.predict`` on 32 seeded 800x1333 uint8
    images (the 800x1344 bucket, one uint8 batch), both launch counts read
    around that run alone, the stem launched on uint8; then the NMS kernel
@@ -20,10 +22,16 @@ or the JAX package. Phases, each of which fails the run on any fault:
    against ``predict`` on the CPU at a small size (f32 and resized uint8);
 5. times (CUDA events after warm-up): the stem kernel from uint8 and f32 and
    the NMS kernel beside their bounds, plain versions and PyTorch
-   yardsticks, and predict img/s at batch 32;
+   yardsticks, and predict img/s at batch 32; the NMS kernel's time is its
+   two kernels' device time from one ``torch.profiler`` window, printed
+   beside the wrapper's CUDA-event and host time per call, with the
+   registers and spills of its ``-Xptxas -v`` log;
 6. match kernel against ``match_targets_plain`` at the training shapes:
    batch 16, the five levels of the 800x1344 bucket, 100 GT rows, seeded GT
-   with 0, 1, a few and 100 valid rows and a constructed IoU tie;
+   with 0, 1, a few and 100 valid rows and a constructed IoU tie; then at
+   P3, blocks that stage no GT row, a first valid row past row 0, a tie
+   across a row culled in its block and an image without GT, at the
+   detector's thresholds and at ones that show the first valid row;
 7. the training path: ``Trainer(max_steps=7).fit`` of an R50-FPN
    ``RetinaNetModel`` (the ``configs/hparams.yaml`` values) on seeded uint8
    batches of 16 at 800x1344; the match launches read around the fit
@@ -31,9 +39,11 @@ or the JAX package. Phases, each of which fails the run on any fault:
 8. one training step on the card against the same step on the CPU (f32
    resnet18 at 128x192, the card through the match kernel, the CPU through
    the plain composition);
-9. times: the match kernel (summed over the five levels) beside its bound
-   and plain version, the loss forward and forward+backward with and
-   without the kernel, the training step's stages, the training step
+9. times: the match kernel (summed over the five levels; device time from
+   the profiler, per level too, beside the CUDA-event and host time, the
+   share of (anchor, GT row) pairs the block cull stages and the ptxas
+   registers and spills) beside its bound and plain version, the loss
+   forward and forward+backward with and without the kernel, the training step's stages, the training step
    (median of 5, host clock), peak memory.
 
 Then the opt-in fused trunk (``apply_detector(use_fused_trunk=True)``) and
@@ -89,6 +99,9 @@ F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 BATCH, H, W = 32, 800, 1344
 STEM_TOL = "|kernel - plain| <= 1 bf16 ulp of the larger value + 1e-6"
 PREDICT_KERNELS = ("fused_stem", "nms_keep_mask")
+# NMS beyond the main path's [32, 1000]: partial 64-candidate chunks and a K
+# whose mask rows are 4x the main path's.
+NMS_SHAPES = ((2, 63), (2, 65), (1, 4096))
 # Ragged stem shapes: a small batch, the portrait bucket, and a width whose
 # last 16-wide pooled tile is partial (1000 / 4 = 250 = 15 x 16 + 10).
 STEM_RAGGED = ((3, 96, 132), (1, 1344, 800), (2, 128, 1000))
@@ -155,6 +168,90 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_times(fn, iters: int = 10) -> dict:
+    """``fn``'s calls back to back after a warm-up, timed twice: without the
+    profiler, the CUDA-event ms per call and the host's us per call to
+    enqueue them (no synchronize inside); then in one ``torch.profiler``
+    window, each CUDA kernel's device us per call, by name, with its
+    launches per call."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_us = (time.perf_counter() - t0) * 1e6 / iters
+    end.record()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        m = re.search(r"(\w+_kernel)\b", e.name)
+        name = m.group(1) if m else e.name[:60]
+        us, n = kernels.get(name, (0.0, 0))
+        kernels[name] = (us + e.time_range.elapsed_us(), n + 1)
+    # The profiler may drop an event of the window: the mean launch times the
+    # launches per call (a whole number) stands for the call.
+    per_call = {k: max(round(n / iters), 1) for k, (_, n) in kernels.items()}
+    return {"kernels": {k: (us / n * per_call[k], per_call[k]) for k, (us, n) in kernels.items()},
+            "event_ms": start.elapsed_time(end) / iters, "host_us": host_us}
+
+
+def kernel_ms(t: dict) -> float:
+    """The device ms per call of ``device_times``' kernels: the kernel time
+    where the wrapper's host work outlasts it (match, NMS); the CUDA-event
+    time if the profiler recorded no kernel."""
+    return sum(us for us, _ in t["kernels"].values()) / 1e3 if t["kernels"] else t["event_ms"]
+
+
+def log_device_times(what: str, t: dict) -> None:
+    if not t["kernels"]:
+        log(f"[trace] {what}: the profiler recorded no device time (not measured); CUDA events "
+            f"{t['event_ms']:.4f} ms per call")
+        return
+    device = sum(us for us, _ in t["kernels"].values())
+    log(f"[trace] {what}: device {device:.1f} us per call ("
+        + ", ".join(f"{k} {us:.1f} us x{n:g}" for k, (us, n) in t["kernels"].items())
+        + f"); CUDA events {t['event_ms'] * 1e3:.1f} us per call; host enqueue "
+        f"{t['host_us']:.1f} us per call")
+
+
+def build_report(name: str, functions) -> dict:
+    """Kernel function -> (registers, spill store bytes, spill load bytes),
+    from the ``-Xptxas -v`` log that ``build.py`` keeps beside the library."""
+    import re
+
+    from pytorch_retinanet_tpu_torch.kernels.build import library_path
+
+    report, fn = {}, None
+    for line in library_path(name).with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            fn = next((f for f in functions if f in line), None)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn is not None:
+            report.setdefault(fn, [None, 0, 0])[1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            report.setdefault(fn, [None, 0, 0])[0] = int(m.group(1))
+    return {k: tuple(v) for k, v in report.items()}
+
+
+def log_build_report(name: str, functions) -> None:
+    log(f"[build] {name}.cu: " + "; ".join(
+        f"{fn} {regs} registers, {st} B spill stores, {ld} B spill loads"
+        for fn, (regs, st, ld) in build_report(name, functions).items()))
+
+
 def dense_clusters(gen: torch.Generator, batch: int, k: int, device) -> tuple:
     """Score-ordered, class-offset boxes in tight clusters, ~90% valid."""
     centers = torch.rand((batch, k // 20 + 1, 2), generator=gen) * torch.tensor([W, H])
@@ -167,6 +264,30 @@ def dense_clusters(gen: torch.Generator, batch: int, k: int, device) -> tuple:
     boxes = boxes + (cls * 4097.0)[..., None]
     valid = torch.rand((batch, k), generator=gen) < 0.9
     return boxes.to(device), valid.to(device)
+
+
+def check_nms_kernel(dev, gen, nms_keep_mask, nms_keep_mask_plain) -> None:
+    """Phase 3: clusters at the main path's [32, 1000], partial 64-candidate
+    chunks and a larger K, identical boxes (one long chain) and disjoint ones
+    (no chain at all), each equal to the plain version."""
+    same = torch.tensor([[10.0, 10.0, 50.0, 50.0]], device=dev).expand(2, 500, 4).contiguous()
+    i = torch.arange(2000, device=dev, dtype=torch.float32)
+    grid = torch.stack([(i % 40) * 30, (i // 40) * 30, (i % 40) * 30 + 20, (i // 40) * 30 + 20], -1)
+    cases = [(f"clusters [{b}, {k}]", *dense_clusters(gen, b, k, dev))
+             for b, k in ((BATCH, 1000),) + NMS_SHAPES]
+    cases += [("identical [2, 500]", same, torch.ones((2, 500), dtype=torch.bool, device=dev)),
+              ("disjoint [1, 2000]", grid[None], torch.ones((1, 2000), dtype=torch.bool, device=dev))]
+    kept = {}
+    for name, boxes, valid in cases:
+        keep = nms_keep_mask(boxes, valid, 0.5)
+        keep_ref = nms_keep_mask_plain(boxes, valid, 0.5)
+        if not torch.equal(keep, keep_ref):
+            raise SystemExit(f"nms kernel differs from plain on {name} at "
+                             f"{int((keep != keep_ref).sum())} of {keep.numel()} candidates")
+        kept[name] = f"{int(keep.sum())} of {int(valid.sum())}"
+    if kept["identical [2, 500]"] != "2 of 1000" or kept["disjoint [1, 2000]"] != "2000 of 2000":
+        raise SystemExit(f"nms kernel: identical boxes kept or disjoint ones suppressed: {kept}")
+    log("[nms] equal to plain, kept of valid: " + ", ".join(f"{k} {v}" for k, v in kept.items()))
 
 
 def check_detections(preds) -> None:
@@ -222,16 +343,44 @@ def seeded_batches(steps: int, batch: int, h: int, w: int, seed: int) -> list:
     return batches
 
 
-def check_match_kernel(dev, results, match_targets, match_targets_plain, anchors_levels):
-    """Phase 6: the kernel against its plain version at the training shapes.
-    Returns the inputs, for the timing phase."""
+def match_inputs(anchors_levels, dev) -> list:
+    """Phase 6's GT at the training shapes: [16, 100] padded rows with 0, 1,
+    3, 100 and seeded counts of valid rows, and a tie under anchor 5000 of
+    level 0 (image 3's rows 4 and 5 are that anchor's box; the first must win)."""
     rng = np.random.default_rng(6)
     n_valid = np.concatenate([[0, 1, 3, 100], rng.integers(1, MAX_GT + 1, TRAIN_BATCH - 4)])
     boxes, labels, valid = seeded_gt(rng, n_valid, H, W)
-    # A tie under anchor 5000 of level 0: image 3's rows 4 and 5 are that
-    # anchor's box; the first of the two must win.
     boxes[3, 4] = boxes[3, 5] = anchors_levels[0][5000].cpu().numpy()
-    gt = [torch.from_numpy(x).to(dev) for x in (boxes, labels, valid)]
+    return [torch.from_numpy(x).to(dev) for x in (boxes, labels, valid)]
+
+
+def main_path_batch(dev):
+    """Phase 4's input: 32 seeded 800x1333 uint8 images, and the padded
+    800x1344 batch and sizes that ``predict`` builds from them."""
+    rng = np.random.default_rng(0)
+    images = [rng.integers(0, 256, (800, 1333, 3), dtype=np.uint8) for _ in range(BATCH)]
+    batch = torch.zeros((BATCH, H, W, 3), dtype=torch.uint8, device=dev)
+    batch[:, :800, :1333] = torch.from_numpy(np.stack(images)).to(dev)
+    sizes = torch.tensor([[800.0, 1333.0]] * BATCH, device=dev)
+    return rng, images, batch, sizes
+
+
+def nms_candidates(net, batch, sizes):
+    """The class-offset candidates that ``predict`` hands the NMS kernel."""
+    from pytorch_retinanet_tpu_torch.models.retinanet import apply_detector
+    from pytorch_retinanet_tpu_torch.ops import merge_candidates, multilevel_candidates
+
+    with torch.inference_mode():
+        cls_l, box_l = apply_detector(net.module, batch, return_levels=True)
+        cand = multilevel_candidates(cls_l, box_l, net._anchors_for(tuple(batch.shape[1:3])))
+        cboxes, _, cidx, cvalid = merge_candidates(*cand, sizes)
+    return cboxes + (cidx.float() * 4097.0)[..., None], cvalid
+
+
+def check_match_kernel(dev, results, match_targets, match_targets_plain, anchors_levels):
+    """Phase 6: the kernel against its plain version at the training shapes.
+    Returns the inputs, for the timing phase."""
+    gt = match_inputs(anchors_levels, dev)
     err = 0.0
     for level, anchors in enumerate(anchors_levels):
         got = match_targets(anchors, *gt)
@@ -249,8 +398,65 @@ def check_match_kernel(dev, results, match_targets, match_targets_plain, anchors
         log(f"[match] level {level}: [{TRAIN_BATCH}, {anchors.shape[0]}] x {MAX_GT} GT rows: "
             f"{MATCH_TOL} ({ulps} ulp); fg {int((got[0] >= 0).sum())}, "
             f"ignored {int((got[0] == -2).sum())}")
+    # Blocks that stage no row (their anchors take the first valid row, 5,
+    # at IoU 0), a tie across a row culled in the tie's block, an image
+    # without GT; at the detector's thresholds and at ones under which the
+    # first valid row shows in ``matches``.
+    edge = match_edge_case(anchors_levels[0], dev)
+    for fg, bg in ((0.5, 0.4), (-0.5, 0.0)):
+        got = match_targets(anchors_levels[0], *edge, fg_iou_thr=fg, bg_iou_thr=bg)
+        want = match_targets_plain(anchors_levels[0], *edge, fg_iou_thr=fg, bg_iou_thr=bg)
+        exact = all(torch.equal(a, b) for a, b in zip(got[:2], want[:2])) and \
+            torch.equal(got[2][..., :2], want[2][..., :2])
+        if not exact or f32_ulp_distance(got[2][..., 2:], want[2][..., 2:]) > 2 \
+                or (got[0][:2, MATCH_TIE_ANCHOR] != 5).any() or (got[0][2] != -2).any() \
+                or (fg < 0 and (got[0][0, :256] != 5).any()):
+            raise SystemExit(f"match kernel on the edge blocks at thresholds {(fg, bg)} disagrees "
+                             f"with plain or puts the tie or the first valid row wrong")
+    log(f"[match] edge blocks at P3 [3, {anchors_levels[0].shape[0]}]: blocks that stage no row, "
+        f"first valid row 5, a tie across a culled row, no GT; equal at thresholds (0.5, 0.4) "
+        f"and (-0.5, 0.0)")
     results["match_targets"]["max_abs_err"] = err
     return gt
+
+
+# P3 of 800x1344: position row 90, column 84, the first anchor shape.
+MATCH_TIE_ANCHOR = 9 * (90 * 168 + 84)
+
+
+def match_edge_case(anchors: torch.Tensor, dev) -> list:
+    """Three images of 12 padded rows: image 0 has rows 5 and 7 valid, both
+    the box of MATCH_TIE_ANCHOR near the bottom, so the upper blocks stage no
+    row; image 1 adds row 6 in the top corner, culled in the tie's block;
+    image 2 has no GT."""
+    gt = torch.zeros((3, 12, 4), device=dev)
+    gt[:, 5] = gt[:, 7] = anchors[MATCH_TIE_ANCHOR]
+    gt[:, 6] = torch.tensor([0.0, 0.0, 2.0, 2.0], device=dev)
+    valid = torch.zeros((3, 12), dtype=torch.bool, device=dev)
+    valid[0, [5, 7]] = True
+    valid[1, 5:8] = True
+    gt = torch.where(valid[..., None], gt, torch.zeros_like(gt))
+    labels = torch.where(valid, torch.arange(1, 13, device=dev), torch.zeros_like(valid, dtype=torch.long))
+    return [gt, labels.to(torch.int32), valid]
+
+
+def match_staged_share(anchors: torch.Tensor, gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
+                       block: int = 256) -> float:
+    """Share of the (anchor, valid GT row) pairs that the match kernel scans:
+    per block of 256 anchors, the valid rows that overlap the block's
+    bounding box (``csrc/match.cu``, step 2)."""
+    a = anchors.shape[0]
+    nb = -(-a // block)
+    padded = torch.cat([anchors, anchors[-1:].expand(nb * block - a, 4)]).view(nb, block, 4)
+    lo, hi = padded[..., :2].amin(1), padded[..., 2:].amax(1)  # [nb, 2]
+    g = gt_boxes[:, None]  # [B, 1, N, 4]
+    culled = ((g[..., 2] <= lo[None, :, None, 0]) | (g[..., 0] >= hi[None, :, None, 0])
+              | (g[..., 3] <= lo[None, :, None, 1]) | (g[..., 1] >= hi[None, :, None, 1]))
+    kept = gt_valid[:, None, :] & ~culled  # [B, nb, N]
+    per_block = torch.full((nb,), block, device=anchors.device)
+    per_block[-1] = a - (nb - 1) * block
+    staged = float((kept.sum(-1) * per_block).sum())
+    return staged / max(float(gt_valid.sum()) * a, 1.0)
 
 
 def time_loss_arms(dev, anchors_levels, gt, retinanet_loss_levels) -> None:
@@ -433,7 +639,8 @@ def training_phases(dev, results) -> None:
 
     # 9. Times of the training path.
     mt = results["match_targets"]
-    mt["ms"] = time_ms(lambda: [match_targets(a, *match_gt) for a in anchors_levels], 20)
+    step = device_times(lambda: [match_targets(a, *match_gt) for a in anchors_levels], 20)
+    mt["ms"] = kernel_ms(step)
     mt["plain_ms"] = time_ms(lambda: [match_targets_plain(a, *match_gt) for a in anchors_levels], 3)
     mt["library_ms"] = None  # no single PyTorch call computes the match and its targets
     n_anchors = sum(a.shape[0] for a in anchors_levels)
@@ -445,6 +652,12 @@ def training_phases(dev, results) -> None:
         (pairs * 12 / F32_FLOPS * 1e3, "operations"),
     )
     log_kernel_time(mt)
+    log_build_report("match", ("match_kernel",))
+    for level, a in enumerate(anchors_levels):
+        log_device_times(f"match_targets level {level} [{TRAIN_BATCH}, {a.shape[0]}], "
+                         f"{match_staged_share(a, match_gt[0], match_gt[2]):.2%} of the valid "
+                         f"(anchor, GT row) pairs staged", device_times(lambda: match_targets(a, *match_gt)))
+    log_device_times("match_targets, the five levels of one step", step)
     time_loss_arms(dev, anchors_levels, match_gt, retinanet_loss_levels)
     time_train_stages(dev, model, trainer, model.loader[0], retinanet_loss_levels)
     step_s = []
@@ -513,29 +726,19 @@ BOTTLENECK_RAGGED = ((4, 13, 21, 128), (2, 23, 29, 128), (2, 17, 31, 256), (2, 1
                      (2, 12, 40, 512))
 
 
-def bottleneck_build_report(log_text: str) -> dict:
-    """mid -> (registers, spill store bytes, spill load bytes) per kernel
-    instance, from the ``-Xptxas -v`` log that ``build.py`` keeps."""
-    import re
-
-    report, mid = {}, None
-    for line in log_text.splitlines():
-        m = re.search(r"Compiling entry function '.*bottleneck_kernelILi(\d+)E", line)
-        if m:
-            mid = int(m.group(1))
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m and mid is not None:
-            report.setdefault(mid, [None, 0, 0])[1:] = [int(m.group(1)), int(m.group(2))]
-        m = re.search(r"Used (\d+) registers", line)
-        if m and mid is not None:
-            report.setdefault(mid, [None, 0, 0])[0] = int(m.group(1))
-    return {k: tuple(v) for k, v in report.items()}
+def bottleneck_build_report() -> dict:
+    """mid -> (registers, spill store bytes, spill load bytes) of each kernel
+    instance, from the ``-Xptxas -v`` log."""
+    mids = (128, 256, 512)
+    report = build_report("bottleneck", [f"bottleneck_kernelILi{mid}E" for mid in mids])
+    return {mid: report[f"bottleneck_kernelILi{mid}E"] for mid in mids
+            if f"bottleneck_kernelILi{mid}E" in report}
 
 
-def log_bottleneck_config(shape, bottleneck_launch_config, build_report) -> dict:
+def log_bottleneck_config(shape, bottleneck_launch_config, registers) -> dict:
     b, h, w, mid = shape
     cfg = bottleneck_launch_config(mid, h, w, b)
-    regs, st, ld = build_report.get(mid, (None, None, None))
+    regs, st, ld = registers.get(mid, (None, None, None))
     log(f"[bottleneck] launch at [{b}, {h}, {w}, {4 * mid}] mid {mid}: tile {cfg['tile_h']}x"
         f"{cfg['tile_w']}, cluster {cfg['cluster']}, {cfg['ctas']} CTAs of {cfg['threads']} threads, "
         f"{cfg['smem_bytes']} B dynamic shared memory ({cfg['slots']} ring slots of "
@@ -548,14 +751,13 @@ def check_bottleneck_kernel(dev, results, fused_bottleneck, bottleneck_plain) ->
     """Phase a: the kernel against its plain version at the stage shapes of
     batch 32 and ragged ones. Returns the stage inputs, for the times."""
     from pytorch_retinanet_tpu_torch.kernels import bottleneck_launch_config
-    from pytorch_retinanet_tpu_torch.kernels.build import library_path
 
-    build_report = bottleneck_build_report(library_path("bottleneck").with_suffix(".log").read_text())
+    registers = bottleneck_build_report()
     stage_args, err = [], 0.0
     shapes = [(BATCH, h, w, mid) for h, w, mid, _ in BOTTLENECK_STAGES] + list(BOTTLENECK_RAGGED)
     for i, (b, h, w, mid) in enumerate(shapes):
         if b == BATCH:
-            log_bottleneck_config((b, h, w, mid), bottleneck_launch_config, build_report)
+            log_bottleneck_config((b, h, w, mid), bottleneck_launch_config, registers)
         args = bottleneck_case(dev, b, h, w, mid, seed=10 + i)
         got = fused_bottleneck(*args)
         want = bottleneck_plain(*args)
@@ -798,7 +1000,6 @@ def main() -> int:
     from pytorch_retinanet_tpu_torch.models.retinanet import (
         Retinanet, apply_detector, resize_for_bucket,
     )
-    from pytorch_retinanet_tpu_torch.ops import merge_candidates, multilevel_candidates
 
     dev = torch.device("cuda")
     torch.backends.cudnn.allow_tf32 = False
@@ -847,18 +1048,11 @@ def main() -> int:
             del out, ref
     results["fused_stem"]["max_abs_err"] = err
 
-    # 3. NMS kernel against its plain version on dense clusters.
-    boxes, valid = dense_clusters(gen, BATCH, 1000, dev)
-    keep = nms_keep_mask(boxes, valid, 0.5)
-    keep_ref = nms_keep_mask_plain(boxes, valid, 0.5)
-    if not torch.equal(keep, keep_ref):
-        raise SystemExit(f"nms kernel differs from plain on clusters at "
-                         f"{int((keep != keep_ref).sum())} of {keep.numel()} candidates")
-    log(f"[nms] clusters [32, 1000]: equal; kept {int(keep.sum())} of {int(valid.sum())} valid")
+    # 3. NMS kernel against its plain version on dense clusters and edge cases.
+    check_nms_kernel(dev, gen, nms_keep_mask, nms_keep_mask_plain)
 
     # 4. Main path.
-    rng = np.random.default_rng(0)
-    images = [rng.integers(0, 256, (800, 1333, 3), dtype=np.uint8) for _ in range(BATCH)]
+    rng, images, batch, sizes = main_path_batch(dev)
     net = Retinanet(backbone_kind="resnet50", num_classes=90, pretrained=False, prior=0.5,
                     seed=0)
     net.predict(images[:2])  # warm-up: cuDNN plans, allocator
@@ -882,14 +1076,8 @@ def main() -> int:
     log(f"[predict] detections per image: {[len(p['scores']) for p in preds[:8]]} ...")
 
     # The same batch's NMS input, rebuilt outside the counted run.
-    batch = torch.zeros((BATCH, H, W, 3), dtype=torch.uint8, device=dev)
-    batch[:, :800, :1333] = torch.from_numpy(np.stack(images)).to(dev)
-    sizes = torch.tensor([[800.0, 1333.0]] * BATCH, device=dev)
+    offset_boxes, cvalid = nms_candidates(net, batch, sizes)
     with torch.inference_mode():
-        cls_l, box_l = apply_detector(net.module, batch, return_levels=True)
-        cand = multilevel_candidates(cls_l, box_l, net._anchors_for((H, W)))
-        cboxes, cscores, cidx, cvalid = merge_candidates(*cand, sizes)
-        offset_boxes = cboxes + (cidx.float() * 4097.0)[..., None]
         keep = nms_keep_mask(offset_boxes, cvalid, net.nms_thres)
         keep_ref = nms_keep_mask_plain(offset_boxes, cvalid, net.nms_thres)
     if not torch.equal(keep, keep_ref):
@@ -979,7 +1167,8 @@ def main() -> int:
         if dtype == torch.uint8:
             st.update({k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
     nm = results["nms_keep_mask"]
-    nm["ms"] = time_ms(lambda: nms_keep_mask(offset_boxes, cvalid, 0.5), 50)
+    nms_times = device_times(lambda: nms_keep_mask(offset_boxes, cvalid, 0.5), 50)
+    nm["ms"] = kernel_ms(nms_times)
     nm["plain_ms"] = time_ms(lambda: nms_keep_mask_plain(offset_boxes, cvalid, 0.5), 3)
     nm["library_ms"] = None  # no single PyTorch call computes greedy NMS
     nv = cvalid.sum(dim=1).double()
@@ -991,6 +1180,9 @@ def main() -> int:
     )
     for name in PREDICT_KERNELS:
         log_kernel_time(results[name])
+    log_build_report("nms", ("nms_mask_kernel", "nms_scan_kernel"))
+    log_device_times(f"nms_keep_mask on the main path's candidates [32, {cvalid.shape[1]}]",
+                     nms_times)
 
     with torch.inference_mode():
         t_net = time_ms(lambda: apply_detector(net.module, batch, return_levels=True), 5)
@@ -1005,7 +1197,7 @@ def main() -> int:
         f"{BATCH / per_batch:.1f} img/s; forward on the uint8 batch (stem with the normalize "
         f"folded in+trunk+FPN+head) {t_net:.2f} ms; postprocess {t_post:.2f} ms; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    del gpu_net, cpu_net, cls_l, box_l, x, stem_in
+    del gpu_net, cpu_net, x, stem_in
     torch.cuda.empty_cache()
 
     fused_trunk_phases(dev, results, net, batch, sizes)

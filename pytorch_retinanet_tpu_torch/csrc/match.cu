@@ -6,19 +6,36 @@
 // it, one (image, 1024-anchor tile) grid cell at a time. The planar [4, T]
 // layout and the lane tiles exist for Mosaic and are not carried over.
 //
-// What bounds it on an H100: operations. At the training shapes (batch 16,
-// the 800x1344 bucket's 201,600 anchors, N = 100 padded GT rows) a step
-// needs 322.6 M IoU pairs, about 12 f32 operations each and an IEEE
-// division, against about 81 MB of anchors, GT and outputs: ~0.06 ms at the
-// 67 TFLOP/s f32 peak against ~0.024 ms of HBM traffic.
+// What bounds it on an H100: at the training shapes (batch 16, the 800x1344
+// bucket's 201,600 anchors, N = 100 padded GT rows) the writes, 16 x 201,600
+// x 24 B = 77 MB, 0.023 ms at 3.35 TB/s. Scanning every (anchor, row) pair
+// with an IEEE division each would cost 322.6 M pairs per step, about 20x
+// that floor in instruction time; the pairs that can have a non-zero
+// intersection are a small share of them, because a block of consecutive
+// anchors covers a narrow strip of the image.
 //
-// Design: a grid over (256-anchor block, image). The block stages the
-// image's GT rows (box, area, label, valid) in shared memory; every thread
-// owns one anchor, scans the rows in index order keeping the best IoU with a
-// strict `>` (ties keep the first index, as jnp.argmax does), applies the
-// thresholds and the all-ignore rule, gathers the matched row (row 0 when the
-// anchor is not foreground, the XLA path's safe index) and writes the three
-// outputs in [B, A] / [B, A, 4] layout. No [B, A, N] intermediate is formed.
+// Design: a grid over (256-anchor block, image), one anchor per thread.
+//   1. The block reduces its anchors to their bounding box.
+//   2. It stages in shared memory, in ascending row order, only the image's
+//      valid GT rows that overlap that box (open intervals on both axes),
+//      with their original indices, and notes the first valid row.
+//   3. Each thread starts from IoU 0 at the first valid row and scans the
+//      staged rows with a strict `>`; a pair whose intersection has a zero
+//      side gets IoU 0 without the division.
+//   4. Thresholds, the all-ignore rule, the matched row (row 0 when the
+//      anchor is not foreground) read from global memory, the encode, and
+//      coalesced [B, A] / [B, A, 4] stores.
+// Why this equals a scan of every row: a padded row's IoU is -1 there, below
+// every valid row's (>= 0), so it can win only when no row is valid, where
+// the all-ignore rule decides. A culled row lies wholly on one side of the
+// box, so for every anchor of the block min(g.x2, a.x2) - max(g.x1, a.x1)
+// <= 0 (or the same in y): its IoU is +-0. Starting from 0 at the first
+// valid row gives what the full scan gives when every IoU is 0 (the first
+// valid row), and a strict `>` never lets a later 0 replace it; when some
+// IoU is positive the first row that reaches the maximum is staged. The
+// zero pre-test is exact because __fdiv_rn(+-0, positive) is +-0, which
+// compares equal to +0. The box is reduced from the block's own anchors, so
+// the cull holds for any anchor order.
 //
 // Exactness: the IoU follows ops/boxes.py::box_iou with GT as the first
 // operand (area_g + area_a - inter, union clamped at 1e-12) and the encode
@@ -28,11 +45,14 @@
 // bit. logf is not correctly rounded: tw and th may differ by an ulp or two.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
 constexpr float kIouEps = 1e-12f;
 constexpr float kEncodeEps = 1e-8f;
 
@@ -52,54 +72,104 @@ __global__ void __launch_bounds__(kThreads) match_kernel(
     int32_t* __restrict__ matches, int32_t* __restrict__ fg_labels,
     float4* __restrict__ reg, Params p) {
   extern __shared__ float4 smem[];
-  float4* g_box = smem;                                            // [n]
-  float* g_area = reinterpret_cast<float*>(g_box + p.n);           // [n]
-  int32_t* g_label = reinterpret_cast<int32_t*>(g_area + p.n);     // [n]
-  uint8_t* g_valid = reinterpret_cast<uint8_t*>(g_label + p.n);    // [n]
+  float4* s_box = smem;                                          // [n], staged rows
+  float* s_area = reinterpret_cast<float*>(s_box + p.n);         // [n]
+  int32_t* s_row = reinterpret_cast<int32_t*>(s_area + p.n);     // [n], original index
+  __shared__ float4 s_red[kWarps];
+  __shared__ int s_count[kWarps];
+  __shared__ int s_first;
 
   const int b = blockIdx.y;
-  const float4* gb = gt + (size_t)b * p.n;
-  int any_valid = 0;
-  for (int j = threadIdx.x; j < p.n; j += kThreads) {
-    const float4 box = gb[j];
-    g_box[j] = box;
-    g_area[j] = box_area(box);
-    g_label[j] = labels[(size_t)b * p.n + j];
-    g_valid[j] = valid[(size_t)b * p.n + j];
-    any_valid |= g_valid[j];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int i = blockIdx.x * kThreads + tid;
+  const bool active = i < p.a;
+  const float4 an = active ? anchors[i] : make_float4(INFINITY, INFINITY, -INFINITY, -INFINITY);
+
+  // 1. The block's bounding box (min x1, y1; max x2, y2).
+  float4 box = an;
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    box.x = fminf(box.x, __shfl_xor_sync(kFull, box.x, s));
+    box.y = fminf(box.y, __shfl_xor_sync(kFull, box.y, s));
+    box.z = fmaxf(box.z, __shfl_xor_sync(kFull, box.z, s));
+    box.w = fmaxf(box.w, __shfl_xor_sync(kFull, box.w, s));
   }
-  const bool any_gt = __syncthreads_or(any_valid);
+  if (lane == 0) s_red[warp] = box;
+  if (tid == 0) s_first = p.n;
+  __syncthreads();
+  box = s_red[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) {
+    const float4 o = s_red[w];
+    box = make_float4(fminf(box.x, o.x), fminf(box.y, o.y), fmaxf(box.z, o.z), fmaxf(box.w, o.w));
+  }
 
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= p.a) return;
-  const float4 an = anchors[i];
-  const float area_a = box_area(an);
-
-  float best = -2.0f;  // below any IoU and below the -1 of an invalid row
-  int best_idx = 0;
-  for (int j = 0; j < p.n; ++j) {
-    float v = -1.0f;
-    if (g_valid[j]) {
-      const float4 g = g_box[j];
-      const float iw = fmaxf(__fsub_rn(fminf(g.z, an.z), fmaxf(g.x, an.x)), 0.0f);
-      const float ih = fmaxf(__fsub_rn(fminf(g.w, an.w), fmaxf(g.y, an.y)), 0.0f);
-      const float inter = __fmul_rn(iw, ih);
-      const float uni = __fsub_rn(__fadd_rn(g_area[j], area_a), inter);
-      v = __fdiv_rn(inter, fmaxf(uni, kIouEps));
+  // 2. Stage the valid rows that overlap the box, in ascending order.
+  const float4* gb = gt + (size_t)b * p.n;
+  const uint8_t* vb = valid + (size_t)b * p.n;
+  int count = 0;
+  for (int base = 0; base < p.n; base += kThreads) {
+    const int j = base + tid;
+    const bool v = j < p.n && vb[j];
+    bool keep = false;
+    float4 g = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (v) {
+      g = gb[j];
+      keep = !(g.z <= box.x || g.x >= box.z || g.w <= box.y || g.y >= box.w);
     }
+    const unsigned kept = __ballot_sync(kFull, keep);
+    const unsigned any = __ballot_sync(kFull, v);
+    if (lane == 0) {
+      s_count[warp] = __popc(kept);
+      if (any) atomicMin(&s_first, base + warp * 32 + __ffs(any) - 1);
+    }
+    __syncthreads();
+    int offset = count, total = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = s_count[w];
+      offset += w < warp ? c : 0;
+      total += c;
+    }
+    if (keep) {
+      const int pos = offset + __popc(kept & ((1u << lane) - 1u));
+      s_box[pos] = g;
+      s_area[pos] = box_area(g);
+      s_row[pos] = j;
+    }
+    count += total;
+    __syncthreads();
+  }
+  const int first = s_first;
+  if (!active) return;
+
+  // 3. The scan: IoU 0 at the first valid row, then the staged rows.
+  const bool any_gt = first < p.n;
+  const float area_a = box_area(an);
+  float best = any_gt ? 0.0f : -2.0f;
+  int best_idx = any_gt ? first : 0;
+  for (int k = 0; k < count; ++k) {
+    const float4 g = s_box[k];
+    const float iw = fmaxf(__fsub_rn(fminf(g.z, an.z), fmaxf(g.x, an.x)), 0.0f);
+    const float ih = fmaxf(__fsub_rn(fminf(g.w, an.w), fmaxf(g.y, an.y)), 0.0f);
+    if (iw == 0.0f || ih == 0.0f) continue;  // IoU +-0, never above best >= 0
+    const float inter = __fmul_rn(iw, ih);
+    const float uni = __fsub_rn(__fadd_rn(s_area[k], area_a), inter);
+    const float v = __fdiv_rn(inter, fmaxf(uni, kIouEps));
     if (v > best) {
       best = v;
-      best_idx = j;
+      best_idx = s_row[k];
     }
   }
 
+  // 4. Thresholds, the matched row, the encode.
   int m = -2;
   if (best < p.bg_thr) m = -1;
   if (best > p.fg_thr) m = best_idx;
   if (!any_gt) m = -2;
   const bool fg = m >= 0;
   const int sel = fg ? best_idx : 0;
-  const float4 g = g_box[sel];
+  const float4 g = gb[sel];
 
   const float acx = __fmul_rn(__fadd_rn(an.x, an.z), 0.5f);
   const float acy = __fmul_rn(__fadd_rn(an.y, an.w), 0.5f);
@@ -117,7 +187,7 @@ __global__ void __launch_bounds__(kThreads) match_kernel(
 
   const size_t o = (size_t)b * p.a + i;
   matches[o] = m;
-  fg_labels[o] = fg ? g_label[sel] : 0;
+  fg_labels[o] = fg ? labels[(size_t)b * p.n + sel] : 0;
   reg[o] = t;
 }
 
@@ -132,7 +202,7 @@ extern "C" int match_targets(const void* anchors, const void* gt, const void* la
                              int batch, int a, int n, float fg_thr, float bg_thr,
                              float w0, float w1, float w2, float w3, void* stream) {
   const Params p{a, n, fg_thr, bg_thr, w0, w1, w2, w3};
-  const size_t smem = (size_t)n * (sizeof(float4) + sizeof(float) + sizeof(int32_t) + 1);
+  const size_t smem = (size_t)n * (sizeof(float4) + sizeof(float) + sizeof(int32_t));
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         match_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

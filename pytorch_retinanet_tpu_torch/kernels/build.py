@@ -85,6 +85,15 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
     return {name: library_path(name) for name in names}
 
 
+def bind(name: str, symbol: str, argtypes: List, restype=ctypes.c_int):
+    """The C function ``symbol`` of ``csrc/<name>.cu``, its argument types
+    set once (a ctypes function keeps them between calls)."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = argtypes, restype
+    return fn
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = _loaded.get(name)

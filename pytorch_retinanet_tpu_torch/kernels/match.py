@@ -5,8 +5,9 @@ for one pyramid level, the IoU of every anchor against the image's padded GT
 rows, the match with its ignore band (``-1`` background below ``bg_iou_thr``,
 ``-2`` ignore, the GT index strictly above ``fg_iou_thr``, first index on
 ties, all-ignore for an image without GT), the matched label and the
-encoded regression targets. The kernel is bound by operations (the IoU
-pairs); ``csrc/match.cu`` says how it is laid out. Nothing here has a
+encoded regression targets. The kernel scans, per block of 256 anchors,
+only the GT rows that overlap the block's bounding box; ``csrc/match.cu``
+says how it is laid out and why that cull is exact. Nothing here has a
 gradient: the outputs are targets.
 
 :func:`match_targets` is the wrapper: for CPU tensors it computes the plain
@@ -110,12 +111,10 @@ def match_targets(
     reg = torch.empty((b, a, 4), dtype=torch.float32, device=dev)
     if b == 0 or a == 0:
         return matches, fg_labels, reg
-    from .build import load
+    from .build import bind
 
-    fn = load("match").match_targets
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float] * 6
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = bind("match", "match_targets", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+              + [ctypes.c_float] * 6 + [ctypes.c_void_p])
     anchors, gt_boxes = _aligned(anchors), _aligned(gt_boxes)
     labels = gt_labels.to(torch.int32).contiguous()
     valid = gt_valid.to(torch.bool).contiguous()

@@ -2,7 +2,9 @@
 
 Replaces ``pytorch_retinanet_tpu/kernels/nms_pallas.py::pallas_nms_keep_mask``.
 The kernel is bound by the latency of the serial greedy scan, not by bytes
-or arithmetic; ``csrc/nms.cu`` says how its two passes are laid out.
+or arithmetic; ``csrc/nms.cu`` says how its two passes are laid out: a
+triangular bitmask pass, then one warp per image resolving 64-candidate
+chunks in registers.
 
 :func:`nms_keep_mask` is the wrapper: for a CPU tensor it computes the plain
 version, for a CUDA tensor it launches the kernel (and counts the launch in
@@ -63,20 +65,22 @@ def nms_keep_mask(boxes: Tensor, valid: Tensor, iou_thr: float) -> Tensor:
     b, k = valid.shape
     if b == 0 or k == 0:
         return valid.clone()
-    from .build import load
+    from .build import bind
 
-    lib = load("nms")
-    fn = lib.nms_keep_mask
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = bind("nms", "nms_keep_mask",
+              [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     boxes = boxes.contiguous()
+    if boxes.data_ptr() % 16:
+        boxes = boxes.clone()  # the kernel reads float4 rows
     valid = valid.contiguous()
     nwords = (k + 63) // 64
-    mask = torch.empty((b, k, nwords), dtype=torch.int64, device=boxes.device)
+    # Per image, padded to whole 64-row chunks: the suppression rows
+    # [64 W, W], their diagonal words [64 W] and the chunks' valid bits [W].
+    scratch = torch.empty(b * nwords * (64 * nwords + 64 + 1), dtype=torch.int64, device=boxes.device)
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(boxes.data_ptr(), valid.data_ptr(), mask.data_ptr(), keep.data_ptr(),
+        err = fn(boxes.data_ptr(), valid.data_ptr(), scratch.data_ptr(), keep.data_ptr(),
                  b, k, float(iou_thr), stream)
     if err != 0:
         raise RuntimeError(f"nms kernel launch failed with CUDA error {err}")

@@ -146,6 +146,8 @@ def retinanet_loss_levels(
         raise NotImplementedError(
             "match_mesh (the match kernel split over a device mesh) is ROADMAP A9, distributed"
         )
+    # Converted once here rather than once per level inside the match.
+    gt_boxes, gt_labels, gt_valid = gt_boxes.float(), gt_labels.to(torch.int32), gt_valid.bool()
     reg_sum = cls_sum = num_fg = 0
     for cls_l, box_l, anc_l in zip(cls_levels, box_levels, anchors_levels):
         r, c, f = _loss_sums(

@@ -187,9 +187,11 @@ def _clusters(dev, b, k, seed=0):
     return boxes.to(dev), valid.to(dev)
 
 
-# K = 2000 does not fit the scan's shared-memory staging and reads the mask
-# from global memory instead.
-@pytest.mark.parametrize("b,k", [(3, 1000), (2, 1), (2, 100), (1, 2000)])
+# The scan resolves 64-candidate chunks: K = 63, 65 and 100 leave a partial
+# chunk; up to K ~ 12,600 two chunks of rows are staged in shared memory, and
+# K = 13000 reads them from global memory instead.
+@pytest.mark.parametrize("b,k", [(3, 1000), (2, 1), (2, 100), (1, 2000), (2, 63), (2, 65),
+                                 (1, 4096), (1, 13000)])
 def test_nms_kernel_equals_plain(dev, b, k):
     boxes, valid = _clusters(dev, b, k)
     before = nms_keep_mask.launches
@@ -285,6 +287,37 @@ def test_match_kernel_equals_plain(dev, b, a, n, n_valid):
     _assert_match_equal(got, want)
     if n >= 3 and n_valid[0] >= 3:
         assert int(got[0][0, 0]) == 1  # the tie went to the first of the equal rows
+
+
+def _match_sentinel_case(dev):
+    """P3 anchors of the 128x192 bucket; image 0 has only rows 5 and 7 valid,
+    both the box of anchor 2916 (near the bottom), so the upper blocks stage
+    no row and their anchors take row 5, the first valid one, at IoU 0;
+    image 1 adds row 6 in the top corner, culled in anchor 2916's block, and
+    image 2 has no GT."""
+    anchors = torch.from_numpy(generate_anchors_per_level((128, 192))[0])
+    gt = torch.zeros((3, 12, 4))
+    gt[:, 5] = gt[:, 7] = anchors[2916]
+    gt[:, 6] = torch.tensor([0.0, 0.0, 2.0, 2.0])
+    valid = torch.zeros((3, 12), dtype=torch.bool)
+    valid[0, [5, 7]] = True
+    valid[1, 5:8] = True
+    gt = torch.where(valid[..., None], gt, torch.zeros_like(gt))
+    labels = torch.where(valid, torch.arange(12) + 1, torch.zeros((3, 12), dtype=torch.long))
+    return [t.to(dev) for t in (anchors, gt, labels, valid)]
+
+
+# (0.5, 0.4) are the detector's; with (-0.5, 0.0) an anchor whose IoU is 0
+# everywhere is matched to the first valid row, so the sentinel shows.
+@pytest.mark.parametrize("fg,bg", [(0.5, 0.4), (-0.5, 0.0)])
+def test_match_kernel_sentinel_only_blocks_and_first_valid_row(dev, fg, bg):
+    case = _match_sentinel_case(dev)
+    got = match_targets(*case, fg_iou_thr=fg, bg_iou_thr=bg)
+    _assert_match_equal(got, match_targets_plain(*case, fg_iou_thr=fg, bg_iou_thr=bg))
+    m = got[0].cpu()
+    assert (m[:2, 2916] == 5).all() and (m[2] == -2).all()
+    if fg < 0:
+        assert (m[0, :256] == 5).all()  # the first block stages no row of image 0
 
 
 def test_match_kernel_takes_int64_labels_and_unaligned_views(dev):

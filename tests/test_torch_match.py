@@ -151,3 +151,150 @@ def test_matcher_max_iou_matches_jax():
     np.testing.assert_array_equal(got.max_iou.numpy(), np.asarray(want.max_iou))
     one = match_anchors(torch.from_numpy(anchors), torch.from_numpy(gt[2]), torch.from_numpy(valid[2]))
     assert torch.equal(one.matches, got.matches[2]) and torch.equal(one.max_iou, got.max_iou[2])
+
+
+# --- The CUDA kernel's scan, emulated in numpy --------------------------------
+#
+# ``csrc/match.cu`` scans, per 256-anchor block, only the valid GT rows that
+# overlap the block's bounding box, from IoU 0 at the first valid row, and
+# skips the division where the intersection has a zero side. The emulation
+# below follows those steps with the kernel's f32 operations in its order;
+# it must equal ``match_targets_plain`` (held above against JAX) exactly.
+
+MATCH_BLOCK = 256
+
+
+def _area(b):
+    return np.maximum(b[..., 2] - b[..., 0], np.float32(0)) * np.maximum(b[..., 3] - b[..., 1], np.float32(0))
+
+
+def kernel_scan_emulation(anchors, gt, labels, valid, fg_thr=0.5, bg_thr=0.4):
+    """(matches [B, A], fg_labels [B, A], staged rows [B, blocks], valid rows [B])."""
+    n_blocks = -(-anchors.shape[0] // MATCH_BLOCK)
+    matches = np.empty((gt.shape[0], anchors.shape[0]), np.int32)
+    staged = np.zeros((gt.shape[0], n_blocks), np.int64)
+    area_g = _area(gt)
+    for b in range(gt.shape[0]):
+        rows = np.flatnonzero(valid[b])
+        for blk in range(n_blocks):
+            sl = slice(blk * MATCH_BLOCK, (blk + 1) * MATCH_BLOCK)
+            an = anchors[sl]
+            bx1, by1, bx2, by2 = an[:, 0].min(), an[:, 1].min(), an[:, 2].max(), an[:, 3].max()
+            g = gt[b, rows]
+            culled = (g[:, 2] <= bx1) | (g[:, 0] >= bx2) | (g[:, 3] <= by1) | (g[:, 1] >= by2)
+            kept = rows[~culled]
+            staged[b, blk] = len(kept)
+            any_gt = len(rows) > 0
+            best = np.full(len(an), 0.0 if any_gt else -2.0, np.float32)
+            idx = np.full(len(an), rows[0] if any_gt else 0, np.int32)
+            area_a = _area(an)
+            for j in kept:
+                gj = gt[b, j]
+                iw = np.maximum(np.minimum(gj[2], an[:, 2]) - np.maximum(gj[0], an[:, 0]), np.float32(0))
+                ih = np.maximum(np.minimum(gj[3], an[:, 3]) - np.maximum(gj[1], an[:, 1]), np.float32(0))
+                inter = iw * ih
+                v = inter / np.maximum((area_g[b, j] + area_a) - inter, np.float32(1e-12))
+                upd = (iw != 0) & (ih != 0) & (v > best)
+                best = np.where(upd, v, best)
+                idx = np.where(upd, np.int32(j), idx)
+            m = np.where(best < bg_thr, -1, -2)
+            m = np.where(best > fg_thr, idx, m)
+            matches[b, sl] = m if any_gt else -2
+    fg_labels = np.where(matches >= 0, np.take_along_axis(labels, np.maximum(matches, 0), 1), 0)
+    return matches, fg_labels.astype(np.int32), staged, valid.sum(1)
+
+
+def _level0_anchors():
+    from pytorch_retinanet_tpu_torch.ops import generate_anchors_per_level
+
+    return generate_anchors_per_level((128, 192))
+
+
+TIE_ANCHOR = 2916  # P3 of 128x192: position row 13, column 12, the first shape
+
+
+def bucket_case(seed):
+    """The real anchor layout of the 128x192 bucket, and GT that exercises the
+    cull: large and small boxes, valid masks that are not a prefix (the first
+    valid row past 0), zero-area rows, an image without GT, one whose only
+    rows (5 and 7) lie near the bottom, and a tie between rows 5 and 7 under
+    anchor TIE_ANCHOR of P3 with row 6, in the top corner, culled there."""
+    rng = np.random.default_rng(seed)
+    levels = _level0_anchors()
+    b, n = 4, 24
+    ctr = rng.uniform([0, 0], [192, 128], (b, n, 2))
+    wh = np.where(rng.uniform(size=(b, n, 1)) < 0.5, rng.uniform(4, 40, (b, n, 2)),
+                  rng.uniform(16, 200, (b, n, 2)))
+    gt = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1).clip(0, [192, 128, 192, 128])
+    gt[:, 3, 2] = gt[:, 3, 0]                 # zero width
+    gt[:, 8, 3] = gt[:, 8, 1]                 # zero height
+    gt[:, 5] = gt[:, 7] = levels[0][TIE_ANCHOR]
+    gt[:, 6] = [0.0, 0.0, 2.0, 2.0]
+    valid = rng.uniform(size=(b, n)) < 0.7
+    valid[:, :2] = False                      # first valid row past 0
+    valid[:, 3:9] = True
+    valid[2] = False                          # no GT
+    valid[3] = False
+    valid[3, [5, 7]] = True                   # near the bottom only: upper blocks stage nothing
+    gt = np.where(valid[..., None], gt, 0.0).astype(np.float32)
+    labels = np.where(valid, rng.integers(1, 91, (b, n)), 0).astype(np.int32)
+    return levels, gt, labels, valid
+
+
+def unordered_case(seed):
+    anchors, gt, labels, valid = random_case(np.random.default_rng(seed), b=3, a=700, n=40,
+                                             spread=600.0)
+    rng = np.random.default_rng(seed + 100)
+    anchors = anchors[rng.permutation(len(anchors))]
+    valid[:, 0] = False
+    valid[1] = False
+    gt = np.where(valid[..., None], gt, 0.0).astype(np.float32)
+    return [anchors], gt, labels, valid
+
+
+EMULATION_CASES = {
+    "bucket_128x192_seed0": lambda: bucket_case(0),
+    "bucket_128x192_seed1": lambda: bucket_case(1),
+    "unordered_anchors": lambda: unordered_case(12),
+}
+# (0.5, 0.4) are the detector's; (-0.5, 0.0) makes the row chosen for an
+# anchor with IoU 0 everywhere (the first valid row) show in ``matches``.
+THRESHOLDS = [(0.5, 0.4), (-0.5, 0.0)]
+
+
+@pytest.mark.parametrize("thr", THRESHOLDS, ids=["detector", "sentinel_visible"])
+@pytest.mark.parametrize("name", sorted(EMULATION_CASES))
+def test_kernel_scan_emulation_equals_plain(name, thr):
+    levels, gt, labels, valid = EMULATION_CASES[name]()
+    staged_total = pairs_total = 0
+    for anchors in levels:
+        m, fl, staged, n_valid = kernel_scan_emulation(anchors, gt, labels, valid, *thr)
+        want = match_targets_plain(*(torch.from_numpy(x) for x in (anchors, gt, labels, valid)), *thr)
+        np.testing.assert_array_equal(m, want[0].numpy())
+        np.testing.assert_array_equal(fl, want[1].numpy())
+        staged_total += staged.sum()
+        pairs_total += (n_valid[:, None] * np.ones_like(staged)).sum()
+    assert staged_total > 0
+    if name.startswith("bucket"):  # unordered anchors span the image: nothing to cull
+        assert staged_total < pairs_total
+
+
+def test_kernel_scan_emulation_edge_blocks():
+    """On P3 of the bucket: a block that stages no row while the image has
+    valid rows (its anchors then take the first valid row at IoU 0), and the
+    tie under TIE_ANCHOR going to row 5 across the culled row 6."""
+    levels, gt, labels, valid = bucket_case(0)
+    m, _, staged, n_valid = kernel_scan_emulation(levels[0], gt, labels, valid, -0.5, 0.0)
+    first_valid = valid.argmax(1)
+    sentinel_only = np.argwhere((staged == 0) & (n_valid[:, None] > 0))
+    assert len(sentinel_only) > 0
+    b, blk = sentinel_only[0]
+    assert (m[b, blk * MATCH_BLOCK:(blk + 1) * MATCH_BLOCK] == first_valid[b]).all()
+    assert first_valid[0] > 0
+    m, _, staged, _ = kernel_scan_emulation(levels[0], gt, labels, valid)
+    assert (m[[0, 1, 3], TIE_ANCHOR] == 5).all() and (m[2] == -2).all()
+    blk = TIE_ANCHOR // MATCH_BLOCK
+    box = levels[0][blk * MATCH_BLOCK:(blk + 1) * MATCH_BLOCK]
+    g6 = gt[0, 6]
+    assert g6[2] <= box[:, 0].min() or g6[0] >= box[:, 2].max() or \
+        g6[3] <= box[:, 1].min() or g6[1] >= box[:, 3].max()  # row 6 is culled there
