@@ -22,9 +22,9 @@ or the JAX package. Phases, each of which fails the run on any fault:
    against ``predict`` on the CPU at a small size (f32 and resized uint8);
 5. times (CUDA events after warm-up): the stem kernel from uint8 and f32 and
    the NMS kernel beside their bounds, plain versions and PyTorch
-   yardsticks, and predict img/s at batch 32; the NMS kernel's time is its
-   two kernels' device time from one ``torch.profiler`` window, printed
-   beside the wrapper's CUDA-event and host time per call, with the
+   yardsticks, and predict img/s at batch 32; for NMS also its two
+   kernels' device time from one ``torch.profiler`` window (``device_ms``
+   in the ``kernels`` line), with the wrapper's host time per call and the
    registers and spills of its ``-Xptxas -v`` log;
 6. match kernel against ``match_targets_plain`` at the training shapes:
    batch 16, the five levels of the 800x1344 bucket, 100 GT rows, seeded GT
@@ -39,10 +39,10 @@ or the JAX package. Phases, each of which fails the run on any fault:
 8. one training step on the card against the same step on the CPU (f32
    resnet18 at 128x192, the card through the match kernel, the CPU through
    the plain composition);
-9. times: the match kernel (summed over the five levels; device time from
-   the profiler, per level too, beside the CUDA-event and host time, the
-   share of (anchor, GT row) pairs the block cull stages and the ptxas
-   registers and spills) beside its bound and plain version, the loss
+9. times: the match kernel (summed over the five levels, CUDA events;
+   device time from the profiler as ``device_ms``, per level too, with the
+   host time, the share of (anchor, GT row) pairs the block cull stages and
+   the ptxas registers and spills) beside its bound and plain version, the loss
    forward and forward+backward with and without the kernel, the training step's stages, the training step
    (median of 5, host clock), peak memory.
 
@@ -173,7 +173,7 @@ def device_times(fn, iters: int = 10) -> dict:
     profiler, the CUDA-event ms per call and the host's us per call to
     enqueue them (no synchronize inside); then in one ``torch.profiler``
     window, each CUDA kernel's device us per call, by name, with its
-    launches per call."""
+    launches per call. Fails the run if the window recorded no kernel."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
@@ -200,6 +200,8 @@ def device_times(fn, iters: int = 10) -> dict:
         name = m.group(1) if m else e.name[:60]
         us, n = kernels.get(name, (0.0, 0))
         kernels[name] = (us + e.time_range.elapsed_us(), n + 1)
+    if not kernels:
+        raise SystemExit("the profiler recorded no CUDA kernel: device time not measured")
     # The profiler may drop an event of the window: the mean launch times the
     # launches per call (a whole number) stands for the call.
     per_call = {k: max(round(n / iters), 1) for k, (_, n) in kernels.items()}
@@ -207,20 +209,13 @@ def device_times(fn, iters: int = 10) -> dict:
             "event_ms": start.elapsed_time(end) / iters, "host_us": host_us}
 
 
-def kernel_ms(t: dict) -> float:
-    """The device ms per call of ``device_times``' kernels: the kernel time
-    where the wrapper's host work outlasts it (match, NMS); the CUDA-event
-    time if the profiler recorded no kernel."""
-    return sum(us for us, _ in t["kernels"].values()) / 1e3 if t["kernels"] else t["event_ms"]
+def device_ms(t: dict) -> float:
+    """The device ms per call of ``device_times``' kernels."""
+    return sum(us for us, _ in t["kernels"].values()) / 1e3
 
 
 def log_device_times(what: str, t: dict) -> None:
-    if not t["kernels"]:
-        log(f"[trace] {what}: the profiler recorded no device time (not measured); CUDA events "
-            f"{t['event_ms']:.4f} ms per call")
-        return
-    device = sum(us for us, _ in t["kernels"].values())
-    log(f"[trace] {what}: device {device:.1f} us per call ("
+    log(f"[trace] {what}: device {device_ms(t) * 1e3:.1f} us per call ("
         + ", ".join(f"{k} {us:.1f} us x{n:g}" for k, (us, n) in t["kernels"].items())
         + f"); CUDA events {t['event_ms'] * 1e3:.1f} us per call; host enqueue "
         f"{t['host_us']:.1f} us per call")
@@ -306,7 +301,8 @@ def check_detections(preds) -> None:
 
 
 def log_kernel_time(r: dict) -> None:
-    log(f"[time] {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
+    device = f", device {r['device_ms']:.4f} ms" if "device_ms" in r else ""
+    log(f"[time] {r['name']}: {r['ms']:.4f} ms{device} (plain {r['plain_ms']:.4f}, library "
         f"{r['library_ms']}, bound {r['bound_ms']:.4f} ms by {r['bound_by']})")
 
 
@@ -440,11 +436,12 @@ def match_edge_case(anchors: torch.Tensor, dev) -> list:
     return [gt, labels.to(torch.int32), valid]
 
 
-def match_staged_share(anchors: torch.Tensor, gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
-                       block: int = 256) -> float:
-    """Share of the (anchor, valid GT row) pairs that the match kernel scans:
-    per block of 256 anchors, the valid rows that overlap the block's
-    bounding box (``csrc/match.cu``, step 2)."""
+def match_cull_counts(anchors: torch.Tensor, gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
+                      block: int = 256) -> tuple:
+    """What the match kernel's block cull leaves to compute (``csrc/match.cu``,
+    step 2): the (anchor, valid GT row) pairs it stages, per block of 256
+    anchors the valid rows that overlap the block's bounding box; and its
+    (block, valid GT row) overlap tests."""
     a = anchors.shape[0]
     nb = -(-a // block)
     padded = torch.cat([anchors, anchors[-1:].expand(nb * block - a, 4)]).view(nb, block, 4)
@@ -455,8 +452,22 @@ def match_staged_share(anchors: torch.Tensor, gt_boxes: torch.Tensor, gt_valid: 
     kept = gt_valid[:, None, :] & ~culled  # [B, nb, N]
     per_block = torch.full((nb,), block, device=anchors.device)
     per_block[-1] = a - (nb - 1) * block
-    staged = float((kept.sum(-1) * per_block).sum())
-    return staged / max(float(gt_valid.sum()) * a, 1.0)
+    return float((kept.sum(-1) * per_block).sum()), float(gt_valid.sum()) * nb
+
+
+def trace_match(match_targets, anchors_levels, gt) -> dict:
+    """The match kernel's device, CUDA-event and host time per level, with the
+    share of valid pairs its cull stages, then over the five levels of one
+    step; returns the step's ``device_times``."""
+    for level, a in enumerate(anchors_levels):
+        staged, _ = match_cull_counts(a, gt[0], gt[2])
+        share = staged / max(float(gt[2].sum()) * a.shape[0], 1.0)
+        log_device_times(f"match_targets level {level} [{TRAIN_BATCH}, {a.shape[0]}], {share:.2%} "
+                         f"of the valid (anchor, GT row) pairs staged",
+                         device_times(lambda: match_targets(a, *gt), 20))
+    step = device_times(lambda: [match_targets(a, *gt) for a in anchors_levels], 20)
+    log_device_times("match_targets, the five levels of one step", step)
+    return step
 
 
 def time_loss_arms(dev, anchors_levels, gt, retinanet_loss_levels) -> None:
@@ -639,25 +650,24 @@ def training_phases(dev, results) -> None:
 
     # 9. Times of the training path.
     mt = results["match_targets"]
-    step = device_times(lambda: [match_targets(a, *match_gt) for a in anchors_levels], 20)
-    mt["ms"] = kernel_ms(step)
+    mt["ms"] = time_ms(lambda: [match_targets(a, *match_gt) for a in anchors_levels], 20)
+    mt["device_ms"] = device_ms(trace_match(match_targets, anchors_levels, match_gt))
     mt["plain_ms"] = time_ms(lambda: [match_targets_plain(a, *match_gt) for a in anchors_levels], 3)
     mt["library_ms"] = None  # no single PyTorch call computes the match and its targets
     n_anchors = sum(a.shape[0] for a in anchors_levels)
-    pairs = float(match_gt[2].sum()) * n_anchors  # IoU pairs of this run's valid GT rows
+    staged, tested = (sum(c) for c in zip(*(match_cull_counts(a, match_gt[0], match_gt[2])
+                                            for a in anchors_levels)))
     match_bytes = (n_anchors * 16 + TRAIN_BATCH * MAX_GT * (16 + 4 + 1)
                    + TRAIN_BATCH * n_anchors * (4 + 4 + 16))
+    # What this run's data needs after the block cull: 12 flop per staged
+    # IoU pair, 4 compares per (block, valid row) test, 4 min / max per anchor
+    # for the blocks' boxes.
     mt["bound_ms"], mt["bound_by"] = max(
         (match_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-        (pairs * 12 / F32_FLOPS * 1e3, "operations"),
+        ((staged * 12 + tested * 4 + n_anchors * 4) / F32_FLOPS * 1e3, "operations"),
     )
     log_kernel_time(mt)
     log_build_report("match", ("match_kernel",))
-    for level, a in enumerate(anchors_levels):
-        log_device_times(f"match_targets level {level} [{TRAIN_BATCH}, {a.shape[0]}], "
-                         f"{match_staged_share(a, match_gt[0], match_gt[2]):.2%} of the valid "
-                         f"(anchor, GT row) pairs staged", device_times(lambda: match_targets(a, *match_gt)))
-    log_device_times("match_targets, the five levels of one step", step)
     time_loss_arms(dev, anchors_levels, match_gt, retinanet_loss_levels)
     time_train_stages(dev, model, trainer, model.loader[0], retinanet_loss_levels)
     step_s = []
@@ -1167,8 +1177,9 @@ def main() -> int:
         if dtype == torch.uint8:
             st.update({k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
     nm = results["nms_keep_mask"]
+    nm["ms"] = time_ms(lambda: nms_keep_mask(offset_boxes, cvalid, 0.5), 50)
     nms_times = device_times(lambda: nms_keep_mask(offset_boxes, cvalid, 0.5), 50)
-    nm["ms"] = kernel_ms(nms_times)
+    nm["device_ms"] = device_ms(nms_times)
     nm["plain_ms"] = time_ms(lambda: nms_keep_mask_plain(offset_boxes, cvalid, 0.5), 3)
     nm["library_ms"] = None  # no single PyTorch call computes greedy NMS
     nv = cvalid.sum(dim=1).double()

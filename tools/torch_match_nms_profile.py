@@ -1,22 +1,23 @@
-"""Device time of the port's match and NMS kernels at the main path's shapes.
+"""Device time of the port's match and NMS kernels, and the host time around them.
 
 Run from the root of a checkout on a machine with the card:
-``python3 tools/torch_match_nms_profile.py [--root DIR] [--json PATH]``.
-``--root`` runs another checkout's package and kernels (a ``git archive`` of
-an earlier commit, say) with this checkout's measurement, so that two
-versions can be compared in one call, in turns. It builds ``match`` and
-``nms`` from that checkout's ``csrc`` and reports, from one
-``torch.profiler`` window per case (device time per kernel) and CUDA events
-around the same calls:
+``python3 tools/torch_match_nms_profile.py [--root DIR]``. ``--root`` runs
+another checkout's package and kernels (a ``git archive`` of an earlier
+commit, say) with this checkout's measurement, so that two versions can be
+compared in one call, in turns; an earlier ``chip_smoke.py`` may not print
+the device time. It builds ``match`` and ``nms`` from that checkout's
+``csrc`` and reports, from one ``torch.profiler`` window per case (device
+time per kernel) and CUDA events around the same calls:
 
 1. the match kernel per level and summed over the five levels, at
    ``chip_smoke.py`` phase 6's training shapes (batch 16, the 800x1344
    bucket, 100 padded GT rows, the same seeded GT), with the share of
-   (anchor, valid GT row) pairs that the block cull stages;
-2. the NMS kernel on phase 3's dense clusters [32, 1000] and on the main
-   path's candidates (phase 4's R50-FPN, prior 0.5, seed 0, 32 seeded
-   images), then that detector's forward and predict composition
-   (``_predict_impl``) on the same batch, with CUDA events.
+   (anchor, valid GT row) pairs that the block cull stages; then the match
+   wrapper's host time at P3, its output allocations and its C call alone;
+2. the NMS kernel on the main path's candidates (phase 4's R50-FPN, prior
+   0.5, seed 0, 32 seeded images), then that detector's forward and predict
+   composition (``_predict_impl``) on the same batch with CUDA events, and
+   the postprocess alone: its launches, device and host time.
 
 The helpers (the profiler window, the seeded inputs) are this checkout's
 ``chip_smoke.py``. Imports nothing of JAX.
@@ -25,9 +26,7 @@ The helpers (the profiler window, the seeded inputs) are this checkout's
 from __future__ import annotations
 
 import argparse
-import ctypes
 import importlib.util
-import json
 import os
 import subprocess
 import sys
@@ -61,9 +60,8 @@ def match_host_breakdown(anchors, gt) -> dict:
     m = torch.empty((b, a), dtype=torch.int32, device=anchors.device)
     f = torch.empty_like(m)
     r = torch.empty((b, a, 4), dtype=torch.float32, device=anchors.device)
+    match_targets(anchors, *gt)  # the wrapper sets the C function's argument types
     fn = load("match").match_targets
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     ptrs = [t.data_ptr() for t in (anchors, boxes, labels, valid, m, f, r)]
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -80,7 +78,6 @@ def match_host_breakdown(anchors, gt) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=ROOT, help="checkout whose package and kernels to time")
-    ap.add_argument("--json", default=None, help="also write the numbers here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_match_nms_profile: needs a CUDA card", file=sys.stderr)
@@ -103,35 +100,20 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     build(["match", "nms"])
     smoke.log(f"[profile] checkout {root}; card {smi}")
-    out = {"root": root, "card": smi}
 
     anchors_levels = [torch.from_numpy(a).to(dev) for a in generate_anchors_per_level((smoke.H, smoke.W))]
     gt = smoke.match_inputs(anchors_levels, dev)
-    out["match"] = []
-    for level, a in enumerate(anchors_levels):
-        t = smoke.device_times(lambda: match_targets(a, *gt), iters=20)
-        share = smoke.match_staged_share(a, gt[0], gt[2])
-        smoke.log_device_times(f"match level {level} [{smoke.TRAIN_BATCH}, {a.shape[0]}], "
-                               f"{share:.2%} of the valid pairs staged by the block cull", t)
-        out["match"].append({"level": level, "staged_share": share, **t})
-    t = smoke.device_times(lambda: [match_targets(a, *gt) for a in anchors_levels], iters=20)
-    smoke.log_device_times("match, the five levels of one step", t)
-    out["match_step"] = t
-    out["match_host_us"] = host = match_host_breakdown(anchors_levels[0], gt)
+    smoke.trace_match(match_targets, anchors_levels, gt)
+    host = match_host_breakdown(anchors_levels[0], gt)
     smoke.log(f"[host] match wrapper at level 0: {host['wrapper']:.1f} us per call; its three "
               f"output allocations {host['allocations']:.1f} us; the C call alone {host['c_call']:.1f} us")
 
-    boxes, valid = smoke.dense_clusters(torch.Generator().manual_seed(0), smoke.BATCH, 1000, dev)
-    t = smoke.device_times(lambda: nms_keep_mask(boxes, valid, 0.5), iters=50)
-    smoke.log_device_times("nms on dense clusters [32, 1000]", t)
-    out["nms_clusters"] = t
     _, _, batch, sizes = smoke.main_path_batch(dev)
     net = Retinanet(backbone_kind="resnet50", num_classes=90, pretrained=False, prior=0.5, seed=0)
     cboxes, cvalid = smoke.nms_candidates(net, batch, sizes)
     t = smoke.device_times(lambda: nms_keep_mask(cboxes, cvalid, 0.5), iters=50)
     smoke.log_device_times(f"nms on the main path's candidates [32, {cvalid.shape[1]}], "
                            f"{int(cvalid.sum())} valid", t)
-    out["nms_main_path"] = t
     with torch.inference_mode():
         forward = smoke.time_ms(lambda: apply_detector(net.module, batch, return_levels=True), 5)
         composition = smoke.time_ms(lambda: net._predict_impl(batch, sizes), 5)
@@ -140,20 +122,14 @@ def main() -> int:
         post = smoke.device_times(lambda: process_detections_multilevel_batch(
             cls_l, box_l, anchors, sizes, score_thres=net.score_thres, nms_thres=net.nms_thres,
             max_detections=net.max_detections), iters=10)
-    out["predict_ms"] = {"forward": forward, "composition": composition}
-    out["postprocess"] = post
     smoke.log(f"[predict] composition (forward + postprocess, CUDA events) {composition:.3f} ms, "
               f"{smoke.BATCH / composition * 1e3:.1f} img/s; forward {forward:.3f} ms; postprocess "
               f"{composition - forward:.3f} ms")
     top = sorted(post["kernels"].items(), key=lambda kv: -kv[1][0])[:12]
-    smoke.log(f"[postprocess] alone: device {sum(us for us, _ in post['kernels'].values()):.1f} us "
-              f"per call in {sum(n for _, n in post['kernels'].values()):g} launches; CUDA events "
+    smoke.log(f"[postprocess] alone: device {smoke.device_ms(post) * 1e3:.1f} us per call in "
+              f"{sum(n for _, n in post['kernels'].values()):g} launches; CUDA events "
               f"{post['event_ms'] * 1e3:.1f} us; host enqueue {post['host_us']:.1f} us; top: "
               + "; ".join(f"{k} {us:.1f} us x{n:g}" for k, (us, n) in top))
-    if args.json:
-        os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
-        with open(args.json, "w") as f:
-            json.dump(out, f, indent=1)
     return 0
 
 
