@@ -76,14 +76,42 @@ f. times: the bottleneck kernel per stage and summed over the 10 blocks of a
    bound, plain version and ``torch.topk``; the trunk, the forward and the
    predict composition through the fused trunk against the default path.
 
+Then the training engine and live batch norm at full width (R50-FPN, 90
+classes, ``configs/hparams.yaml``'s values, seeded uint8 batches of 16 at
+800x1344):
+
+10. ``Trainer.fit`` for 2 epochs of 3 steps with a 1-batch validation
+    loader, ``checkpoint_dir``, ``EarlyStopping``, ``LearningRateMonitor``,
+    the CSV and TensorBoard loggers and the profiler over steps 2-3: match
+    launched 5 times per train and validation step (read around this fit),
+    ``last/`` and ``best/`` written, the CSV rows and TensorBoard scalars
+    equal to the logged metrics, ``hparams.yaml`` (and the PyYAML-free
+    block YAML) holding the config, a trace written; the checkpoint's size
+    and save and restore seconds; the same run interrupted by SIGTERM from
+    its loader as epoch 2 starts: ``fit`` returns with ``interrupt/``
+    written, a new ``Trainer(auto_resume=True)`` restores it bit for bit and
+    finishes with the uninterrupted run's LRs exactly and its losses within
+    ``STEP_LOSS_RTOL``; ``best/`` through ``load_torch_state_dict`` into a
+    ``Retinanet`` whose ``predict`` on phase 4's images (score threshold 0)
+    launches stem and NMS once each;
+11. live BN: 3 ``freeze_bn=False`` steps at batch 16 (finite losses, every
+    running buffer moved, ``num_batches_tracked`` 3, 15 match launches);
+    one live-BN f32 resnet18 step on the card against the CPU (running
+    statistics within ``BN_STATS_TOL``); remat on against off with frozen
+    and with live BN (the loss within ``STEP_LOSS_RTOL``, the running
+    statistics within ``REMAT_STATS_RTOL``, updated once), with step times
+    and peak memory.
+
 The last lines are the ``kernels`` JSON, the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import csv
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -136,6 +164,13 @@ HPARAMS = {
 # cuDNN's f32 backward algorithms sum (or transform) in another order than
 # the CPU's: the largest relative differences show in the FPN's convs.
 STEP_LOSS_RTOL, STEP_UPDATE_TOL = 1e-4, 1e-2
+# Live BN running mean / var on the card against the CPU, of each tensor's
+# largest |value|: the batch statistics sum in another order.
+BN_STATS_TOL = 1e-4
+# Remat on against off: the running statistics after one live-BN step, relative.
+REMAT_STATS_RTOL = 1e-5
+# Phases 10-11: epochs of steps at TRAIN_BATCH for the engine.
+ENGINE_EPOCHS, ENGINE_STEPS = 2, 3
 
 
 def log(msg: str) -> None:
@@ -285,16 +320,16 @@ def check_nms_kernel(dev, gen, nms_keep_mask, nms_keep_mask_plain) -> None:
     log("[nms] equal to plain, kept of valid: " + ", ".join(f"{k} {v}" for k, v in kept.items()))
 
 
-def check_detections(preds) -> None:
+def check_detections(preds, score_thres: float = 0.05) -> None:
     """Per image: boxes [n, 4], scores and labels [n], n > 0, finite, labels in
-    1..90, scores in (0.05, 1], boxes inside the 800x1333 image."""
+    1..90, scores in (score_thres, 1], boxes inside the 800x1333 image."""
     for p in preds:
         b, s, lab = p["boxes"], p["scores"], p["labels"]
         if not (b.ndim == 2 and b.shape[1] == 4 and len(b) == len(s) == len(lab) > 0):
             raise SystemExit(f"bad detection shapes {b.shape} {s.shape} {lab.shape}")
         if not (np.isfinite(b).all() and np.isfinite(s).all()):
             raise SystemExit("non-finite detections")
-        if not ((lab >= 1) & (lab <= 90)).all() or not ((s > 0.05) & (s <= 1)).all():
+        if not ((lab >= 1) & (lab <= 90)).all() or not ((s > score_thres) & (s <= 1)).all():
             raise SystemExit("labels or scores out of range")
         if (b < -1e-3).any() or (b[:, [0, 2]] > 1333 + 1e-2).any() or (b[:, [1, 3]] > 800 + 1e-2).any():
             raise SystemExit("boxes outside the image")
@@ -534,10 +569,11 @@ def time_train_stages(dev, model, trainer, batch, retinanet_loss_levels) -> None
 
 
 def served_model(RetinaNetModel):
-    """The task model serving ``self.loader`` (the data slice is ROADMAP A8)."""
+    """The task model serving ``self.loader`` and ``self.val_loader`` (the
+    data slice is ROADMAP A8)."""
 
     class Served(RetinaNetModel):
-        loader = None
+        loader = val_loader = None
 
         def prepare_data(self):
             pass
@@ -546,7 +582,7 @@ def served_model(RetinaNetModel):
             return self.loader
 
         def val_dataloader(self, shard=0, num_shards=1):
-            return None
+            return self.val_loader
 
     return Served
 
@@ -593,12 +629,13 @@ def train_main_path(Model, Trainer, ConfigDict, reset_launch_counts, kernels):
     return model, trainer, launches["match_targets"], peak
 
 
-def train_card_vs_cpu(Model, Trainer, ConfigDict):
-    """Phase 8: one f32 resnet18 step on the card (match kernel) and on the
-    CPU (plain composition) from the same weights and batch."""
+def train_card_vs_cpu(Model, Trainer, ConfigDict, freeze_bn: bool = True):
+    """Phase 8 (and 11 with live BN): one f32 resnet18 step on the card
+    (match kernel) and on the CPU (plain composition) from the same weights
+    and batch; with live BN also the running statistics after it."""
     hp = ConfigDict(HPARAMS).merge({
         "model": {"backbone_kind": "resnet18", "min_size": 128, "max_size": 192,
-                  "compute_dtype": "float32", "prior": 0.1, "seed": 3},
+                  "compute_dtype": "float32", "prior": 0.1, "seed": 3, "freeze_bn": freeze_bn},
         "optimizer": {"params": {"lr": 0.01}}})
     rng = np.random.default_rng(8)
     boxes, labels, valid = seeded_gt(rng, [5, 0], 128, 192)
@@ -607,13 +644,15 @@ def train_card_vs_cpu(Model, Trainer, ConfigDict):
     models = {d: Model(hp, device=d) for d in ("cuda", "cpu")}
     models["cpu"].net.load_state_dict({k: v.cpu() for k, v in models["cuda"].net.state_dict().items()})
     before = {k: p.detach().clone() for k, p in models["cpu"].net.module.named_parameters()}
-    loss, after = {}, {}
+    before_stats = {k: b.clone() for k, b in models["cpu"].net.module.named_buffers()}
+    loss, after, stats = {}, {}, {}
     for d, m in models.items():
         m.loader = [batch]
         t = Trainer(max_steps=1, warmup_steps=0, log_every_n_steps=1, num_sanity_val_steps=0)
         t.fit(m)
         loss[d] = t.logger_.meters["loss"].value
         after[d] = {k: p.detach().cpu() for k, p in m.net.module.named_parameters()}
+        stats[d] = {k: b.cpu() for k, b in m.net.module.named_buffers() if "running_" in k}
     rel = {}
     for k, p0 in before.items():
         du_card, du_cpu = after["cuda"][k] - p0, after["cpu"][k] - p0
@@ -624,9 +663,20 @@ def train_card_vs_cpu(Model, Trainer, ConfigDict):
             or rel[worst[0]] > STEP_UPDATE_TOL:
         raise SystemExit(f"train step card vs CPU: loss {loss['cuda']} vs {loss['cpu']}; update "
                          f"differences of the tensor's largest, worst: {report}")
-    log(f"[train] f32 resnet18 128x192 step, card (match kernel) vs CPU (plain): loss "
+    what = "frozen BN" if freeze_bn else "live BN"
+    log(f"[train] f32 resnet18 128x192 step, {what}, card (match kernel) vs CPU (plain): loss "
         f"{loss['cuda']:.7f} vs {loss['cpu']:.7f} (limit {STEP_LOSS_RTOL} rel); parameter "
         f"updates within {STEP_UPDATE_TOL} of each tensor's largest, worst: {report}")
+    if not freeze_bn:
+        err = {k: float((v - stats["cpu"][k]).abs().max()) / float(stats["cpu"][k].abs().max())
+               for k, v in stats["cuda"].items()}
+        worst = max(err, key=err.get)
+        if err[worst] > BN_STATS_TOL or any(torch.equal(v, before_stats[k])
+                                             for k, v in stats["cpu"].items()):
+            raise SystemExit(f"live BN running statistics card vs CPU: worst {worst} "
+                             f"{err[worst]:.2e} of the tensor's largest, or a buffer did not move")
+        log(f"[train] live BN running mean / var card vs CPU within {BN_STATS_TOL} of each "
+            f"tensor's largest, worst {worst} {err[worst]:.2e}; all {len(err)} moved")
 
 
 def training_phases(dev, results) -> None:
@@ -681,6 +731,342 @@ def training_phases(dev, results) -> None:
     log(f"[e2e] train step R50-FPN batch {TRAIN_BATCH} 800x1344 (forward, loss, backward, SGD): "
         f"median {step * 1e3:.1f} ms over 5 -> {TRAIN_BATCH / step:.1f} img/s; peak memory of "
         f"the fit {train_peak / 2**30:.1f} GiB")
+
+
+class SigtermLoader:
+    """A train loader that sends SIGTERM to this process when epoch 2 asks
+    for its first batch (the interrupted run of phase 10)."""
+
+    def __init__(self, batches: list):
+        self.batches, self.epoch = batches, 0
+
+    def __len__(self) -> int:
+        return len(self.batches)
+
+    def __iter__(self):
+        self.epoch += 1
+        for i, batch in enumerate(self.batches):
+            if self.epoch == 2 and i == 0:
+                os.kill(os.getpid(), signal.SIGTERM)
+            yield batch
+
+
+def recording(trainer) -> list:
+    """Wrap the trainer's steps: each train step appends (lr, loss), each
+    eval step ("eval", batch size); the loss read is a host sync."""
+    seen = []
+    train_step, eval_step = trainer.train_step, trainer.eval_step
+
+    def train(batch):
+        lr = trainer.current_lr
+        out = train_step(batch)
+        seen.append((lr, out["loss"].item()))
+        return out
+
+    def evaluate(batch):
+        seen.append(("eval", len(batch["images"])))
+        return eval_step(batch)
+
+    trainer.train_step, trainer.eval_step = train, evaluate
+    return seen
+
+
+def checkpoint_state(trainer) -> dict:
+    """The trainer's state as ``save_checkpoint`` writes it, cloned."""
+    opt = trainer._optimizer.state_dict()
+    return {"module": {k: v.clone() for k, v in trainer._model.net.module.state_dict().items()},
+            "optimizer": {"state": {i: {k: v.clone() if torch.is_tensor(v) else v
+                                        for k, v in st.items()}
+                                    for i, st in opt["state"].items()},
+                          "param_groups": opt["param_groups"]},
+            "epoch": trainer.current_epoch, "global_step": trainer.global_step,
+            "sched_lr": trainer._sched_lr, "scheduler_state": trainer._scheduler.state_dict()}
+
+
+def same_state(a, b, path: str = "") -> list:
+    """Where two nested checkpoint states differ (tensors bit for bit)."""
+    if torch.is_tensor(a) or torch.is_tensor(b):
+        ok = torch.is_tensor(a) and torch.is_tensor(b) and a.dtype == b.dtype \
+            and torch.equal(a, b.to(a.device))
+        return [] if ok else [path]
+    if isinstance(a, dict) and isinstance(b, dict):
+        if set(a) != set(b):
+            return [f"{path} keys {sorted(set(a) ^ set(b))[:3]}"]
+        return [d for k in a for d in same_state(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)) and len(a) == len(b):
+        return [d for i, (x, y) in enumerate(zip(a, b)) for d in same_state(x, y, f"{path}/{i}")]
+    return [] if a == b else [f"{path}: {a!r} != {b!r}"]
+
+
+def engine_fit(Model, Trainer, hp, loader, val_loader, **trainer_kw):
+    """A Model on `loader`, its Trainer (2 epochs, warmup as phase 7) and
+    the recorded steps, not yet fitted."""
+    model = Model(hp)
+    model.loader, model.val_loader = loader, val_loader
+    trainer = Trainer(max_epochs=ENGINE_EPOCHS, warmup_steps=500, log_every_n_steps=1,
+                      **trainer_kw)
+    return model, trainer, recording(trainer)
+
+
+def engine_main_path(dev, results, images, work: str) -> None:
+    """Phase 10: checkpoints, loggers, profiler, interrupt and resume of an
+    R50-FPN fit at full width, then predict from the saved checkpoint."""
+    import shutil
+
+    from pytorch_retinanet_tpu_torch import ConfigDict, Retinanet, RetinaNetModel, Trainer
+    from pytorch_retinanet_tpu_torch.config import to_block_yaml
+    from pytorch_retinanet_tpu_torch.engine import (
+        Callback, CSVLogger, EarlyStopping, LearningRateMonitor, TensorBoardLogger,
+    )
+    from pytorch_retinanet_tpu_torch.engine.tb import read_events
+    from pytorch_retinanet_tpu_torch.engine.trainer import CHECKPOINT_FILE
+    from pytorch_retinanet_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from pytorch_retinanet_tpu_torch.utils import ProfilerHook
+
+    shutil.rmtree(work, ignore_errors=True)
+    Model = served_model(RetinaNetModel)
+    hp = ConfigDict(HPARAMS)
+    batches = seeded_batches(ENGINE_STEPS, TRAIN_BATCH, H, W, seed=10)
+    val = seeded_batches(1, TRAIN_BATCH, H, W, seed=11)
+
+    # The uninterrupted run, with every callback and logger attached.
+    class Epochs(Callback):
+        """Each epoch's metrics as the loggers get them."""
+
+        def __init__(self):
+            self.metrics = []
+
+        def on_epoch_end(self, trainer, metrics):
+            self.metrics.append(dict(metrics))
+
+    epochs, tb_logger = Epochs(), TensorBoardLogger(os.path.join(work, "logs"), name="tb")
+    csv_logger = CSVLogger(os.path.join(work, "logs"), name="csv")
+    model, trainer, steps = engine_fit(
+        Model, Trainer, hp, batches, val, checkpoint_dir=os.path.join(work, "run"),
+        callbacks=[EarlyStopping(patience=5), LearningRateMonitor(), tb_logger, epochs],
+        logger=csv_logger, profile_dir=os.path.join(work, "profile"))
+    trainer.profiler = ProfilerHook(os.path.join(work, "profile"), start_step=1, num_steps=2)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.time()
+    trainer.fit(model)
+    torch.cuda.synchronize()
+    fit_s = time.time() - t0
+    launches = {k.name: k.wrapper.launches for k in KERNELS}
+    train = [x for x in steps if x[0] != "eval"]
+    n_eval = sum(1 for x in steps if x[0] == "eval")
+    log(f"[engine] R50-FPN fit, {ENGINE_EPOCHS} epochs of {ENGINE_STEPS} steps at batch "
+        f"{TRAIN_BATCH}, 1-batch validation, checkpoints, EarlyStopping, LearningRateMonitor, "
+        f"CSV and TensorBoard loggers, profiler over steps 2-3: {fit_s:.1f} s; {len(train)} "
+        f"train and {n_eval} validation steps (sanity check included); launches {launches}")
+    log(f"[engine] per-step (lr, loss): {[(lr, round(v, 5)) for lr, v in train]}")
+    if len(train) != ENGINE_EPOCHS * ENGINE_STEPS or not np.isfinite([v for _, v in train]).all():
+        raise SystemExit(f"the engine fit ran {len(train)} steps: {train}")
+    if launches["match_targets"] != 5 * (len(train) + n_eval):
+        raise SystemExit(f"match_targets launched {launches['match_targets']} times over "
+                         f"{len(train)} train and {n_eval} validation steps, not 5 per step")
+    results["match_targets"]["engine_launches"] = launches["match_targets"]
+    run = os.path.join(work, "run")
+    for name in ("last", "best"):
+        if not os.path.isfile(os.path.join(run, name, CHECKPOINT_FILE)):
+            raise SystemExit(f"no {name}/ checkpoint in {run}")
+    with open(os.path.join(csv_logger.log_dir, "metrics.csv")) as f:
+        rows = list(csv.DictReader(f))
+    (events,) = [os.path.join(tb_logger.log_dir, e) for e in os.listdir(tb_logger.log_dir)
+                 if e.startswith("events.out")]
+    scalars = [e for e in read_events(events) if e["values"]]
+    if len(rows) != ENGINE_EPOCHS or len(scalars) != ENGINE_EPOCHS:
+        raise SystemExit(f"{len(rows)} CSV rows and {len(scalars)} TensorBoard events for "
+                         f"{ENGINE_EPOCHS} epochs")
+    for m, row, ev in zip(epochs.metrics, rows, scalars):
+        bad = [k for k, v in m.items() if float(row[k]) != v or ev["values"][k] != np.float32(v)]
+        if bad or "val_loss" not in m or "lr" not in m:
+            raise SystemExit(f"logged metrics read back differently: {bad} of {sorted(m)}")
+    try:
+        import yaml
+    except ImportError:
+        yaml = None
+    hparams = open(os.path.join(csv_logger.log_dir, "hparams.yaml")).read()
+    own = to_block_yaml(hp.to_dict())  # what to_yaml writes where PyYAML is missing
+    if "num_classes: 90" not in hparams or "num_classes: 90" not in own or (
+            yaml and not yaml.safe_load(hparams) == yaml.safe_load(own) == hp.to_dict()):
+        raise SystemExit("hparams.yaml does not hold the model's config")
+    trace = trainer.profiler.trace_path
+    if not trace or not os.path.getsize(trace):
+        raise SystemExit("the profiler wrote no trace")
+    log(f"[engine] last/ and best/ written; {len(rows)} CSV rows and {len(scalars)} TensorBoard "
+        f"events read back equal to the logged metrics ({sorted(epochs.metrics[-1])}); "
+        f"hparams.yaml written ({'with PyYAML on this machine; the PyYAML-free block YAML loads '
+        f'back equal' if yaml else 'without PyYAML on this machine'}); trace "
+        f"{os.path.basename(trace)} {os.path.getsize(trace) / 2**20:.1f} MB")
+
+    # Checkpoint size and its save and restore times.
+    path = os.path.join(work, "timed")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    trainer.save_checkpoint(path)
+    save_s = time.time() - t0
+    t0 = time.time()
+    trainer.restore_checkpoint(path)
+    torch.cuda.synchronize()
+    restore_s = time.time() - t0
+    size = os.path.getsize(os.path.join(path, CHECKPOINT_FILE))
+    log(f"[engine] checkpoint of R50-FPN and its SGD momentum: {size / 1e6:.1f} MB; save "
+        f"{save_s:.3f} s, restore {restore_s:.3f} s")
+    del model, trainer
+    torch.cuda.empty_cache()
+
+    # The interrupted run: SIGTERM from the loader as epoch 2 starts.
+    loader = SigtermLoader(batches)
+    model, trainer, cut = engine_fit(Model, Trainer, hp, loader, val,
+                                     checkpoint_dir=os.path.join(work, "cut"))
+    trainer.fit(model)
+    interrupt = os.path.join(work, "cut", "interrupt")
+    cut = [x for x in cut if x[0] != "eval"]
+    if not trainer._interrupted or not os.path.isfile(os.path.join(interrupt, CHECKPOINT_FILE)) \
+            or len(cut) != ENGINE_STEPS:
+        raise SystemExit(f"SIGTERM in epoch 2: interrupted {trainer._interrupted}, "
+                         f"{len(cut)} steps, interrupt/ {os.path.isdir(interrupt)}")
+    saved = torch.load(os.path.join(interrupt, CHECKPOINT_FILE), map_location=dev,
+                       weights_only=True)
+    del model, trainer
+    model, resumed, rest = engine_fit(Model, Trainer, hp, batches, val,
+                                      checkpoint_dir=os.path.join(work, "cut"), auto_resume=True)
+    restored = {}
+    restore = resumed.restore_checkpoint
+
+    def restore_and_keep(p):
+        restore(p)
+        restored.update(checkpoint_state(resumed), path=p)
+
+    resumed.restore_checkpoint = restore_and_keep
+    resumed.fit(model)
+    got = cut + [x for x in rest if x[0] != "eval"]
+    diff = same_state({k: v for k, v in restored.items() if k != "path"}, saved)
+    if restored.get("path") != interrupt or diff:
+        raise SystemExit(f"resume from {restored.get('path')}: restored state differs from "
+                         f"the saved one at {diff[:5]}")
+    lr_ok = [a[0] for a in got] == [b[0] for b in train]
+    loss_err = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(got, train))
+    if len(got) != len(train) or not lr_ok or loss_err > STEP_LOSS_RTOL:
+        raise SystemExit(f"interrupted + resumed steps {got} against the uninterrupted {train}")
+    log(f"[engine] SIGTERM from the loader as epoch 2 started: fit returned after "
+        f"{len(cut)} steps with interrupt/ written; a new Trainer(auto_resume=True) restored "
+        f"it bit for bit (parameters, buffers, momentum, epoch {saved['epoch']}, global_step "
+        f"{saved['global_step']}, sched_lr, scheduler) and ran {len(got) - len(cut)} steps: "
+        f"LRs equal to the uninterrupted run's, losses within {loss_err:.2e} relative "
+        f"(limit {STEP_LOSS_RTOL})")
+    del model, resumed
+    torch.cuda.empty_cache()
+
+    # The best/ checkpoint back into predict. Six steps from the 0.01 prior
+    # leave every score below the 0.05 threshold: threshold 0 gives NMS its
+    # full 1000 candidates per image.
+    net = Retinanet(**hp.model, seed=5, score_thres=0.0)
+    net.load_torch_state_dict(torch.load(os.path.join(run, "best", CHECKPOINT_FILE),
+                                         map_location="cpu", weights_only=True)["module"])
+    net.predict(images[:2])  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    preds = net.predict(images)
+    launches = {k.name: k.wrapper.launches for k in KERNELS}
+    if launches["fused_stem"] != 1 or launches["nms_keep_mask"] != 1:
+        raise SystemExit(f"predict from best/ launched {launches}, not stem and NMS once each")
+    check_detections(preds, score_thres=0.0)
+    log(f"[engine] best/ loaded through load_torch_state_dict into a Retinanet: predict on "
+        f"phase 4's 32 images (score threshold 0) launched {launches}; detections per image "
+        f"{[len(p['scores']) for p in preds[:8]]} ...")
+    del net
+    torch.cuda.empty_cache()
+
+
+def remat_arm(Model, Trainer, hp, batch) -> dict:
+    """One step of a fresh model on `batch`, then 3 more timed (host
+    clock around a synchronize); the step's loss, the running statistics
+    after it, the median step ms and the peak memory."""
+    model = Model(hp)
+    model.loader = [batch]
+    trainer = Trainer(max_steps=1, warmup_steps=0, log_every_n_steps=1, num_sanity_val_steps=0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.fit(model)
+    out = {"loss": trainer.logger_.meters["loss"].value,
+           "stats": {k: b.clone() for k, b in model.net.module.named_buffers()}}
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+    out["ms"] = float(np.median(times)) * 1e3
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def live_bn_phases(dev) -> None:
+    """Phase 11: live BN at full width, one live-BN step card against CPU,
+    and remat on against off with frozen and with live BN."""
+    from pytorch_retinanet_tpu_torch import ConfigDict, RetinaNetModel, Trainer
+    from pytorch_retinanet_tpu_torch.kernels import KERNELS, reset_launch_counts
+
+    Model = served_model(RetinaNetModel)
+    live = ConfigDict(HPARAMS).merge({"model": {"freeze_bn": False}})
+    model = Model(live)
+    model.loader = seeded_batches(ENGINE_STEPS, TRAIN_BATCH, H, W, seed=12)
+    module = model.net.module
+    before = {k: b.clone() for k, b in module.named_buffers()}
+    trainer = Trainer(max_steps=ENGINE_STEPS, warmup_steps=500, log_every_n_steps=1)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    trainer.fit(model)
+    torch.cuda.synchronize()
+    launches = {k.name: k.wrapper.launches for k in KERNELS}
+    losses = trainer.logger_.meters["loss"].window
+    still = [k for k, b in module.named_buffers()
+             if "running_" in k and torch.equal(b, before[k])]
+    counts = {int(b) for k, b in module.named_buffers() if k.endswith("num_batches_tracked")}
+    if len(losses) != ENGINE_STEPS or not np.isfinite(losses).all() or still \
+            or counts != {ENGINE_STEPS} or launches["match_targets"] != 5 * ENGINE_STEPS:
+        raise SystemExit(f"live BN fit: losses {losses}, unmoved buffers {still[:3]}, "
+                         f"num_batches_tracked {counts}, launches {launches}")
+    n_bn = sum(1 for k in before if k.endswith("num_batches_tracked"))
+    log(f"[live-bn] R50-FPN freeze_bn=False, {ENGINE_STEPS} steps at batch {TRAIN_BATCH}: losses "
+        f"{['%.5f' % v for v in losses]}; all {2 * n_bn} running buffers moved, each of the "
+        f"{n_bn} num_batches_tracked is {ENGINE_STEPS}; launches {launches}")
+    batch = model.loader[0]
+    del model, trainer, module
+    torch.cuda.empty_cache()
+
+    train_card_vs_cpu(Model, Trainer, ConfigDict, freeze_bn=False)
+
+    arms = {}
+    for freeze_bn in (True, False):
+        for remat in (False, True):
+            hp = ConfigDict(HPARAMS).merge({"model": {"freeze_bn": freeze_bn, "remat": remat}})
+            arms[freeze_bn, remat] = remat_arm(Model, Trainer, hp, batch)
+            torch.cuda.empty_cache()
+    for freeze_bn in (True, False):
+        off, on = arms[freeze_bn, False], arms[freeze_bn, True]
+        what = "frozen BN" if freeze_bn else "live BN"
+        loss_err = abs(on["loss"] - off["loss"]) / abs(off["loss"])
+        stats_err = max(float(((on["stats"][k] - v).abs() / v.abs().clamp_min(1e-12)).max())
+                        for k, v in off["stats"].items() if "running_" in k)
+        tracked = {int(v) for k, v in on["stats"].items() if k.endswith("num_batches_tracked")}
+        if loss_err > STEP_LOSS_RTOL or stats_err > REMAT_STATS_RTOL \
+                or tracked != {0 if freeze_bn else 1}:
+            raise SystemExit(f"remat vs not, {what}: loss {on['loss']} vs {off['loss']}, "
+                             f"running statistics {stats_err:.2e} relative, "
+                             f"num_batches_tracked {tracked}")
+        log(f"[remat] {what}, batch {TRAIN_BATCH} 800x1344, one step on against off: loss "
+            f"{on['loss']:.6f} vs {off['loss']:.6f} ({loss_err:.2e} rel, limit {STEP_LOSS_RTOL}); "
+            f"running statistics within {stats_err:.2e} relative (limit {REMAT_STATS_RTOL}), "
+            f"num_batches_tracked {sorted(tracked)}; step {on['ms']:.1f} vs {off['ms']:.1f} ms "
+            f"(median of 3, host clock); peak memory {on['peak_gib']:.2f} vs "
+            f"{off['peak_gib']:.2f} GiB")
+    log(f"[time] train step R50-FPN batch {TRAIN_BATCH}, live BN {arms[False, False]['ms']:.1f} "
+        f"ms against frozen {arms[True, False]['ms']:.1f} ms (median of 3, host clock)")
 
 
 def bottleneck_case(dev, b: int, h: int, w: int, mid: int, seed: int) -> list:
@@ -1216,6 +1602,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     training_phases(dev, results)
+    torch.cuda.empty_cache()
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_engine")
+    engine_main_path(dev, results, images, work)
+    live_bn_phases(dev)
 
     log(json.dumps({"kernels": [results[k.name] for k in KERNELS]}))
     print(smi)

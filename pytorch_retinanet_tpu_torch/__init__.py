@@ -6,17 +6,31 @@ the ``Trainer``) run on CUDA with hand-written kernels for the fused stem,
 greedy NMS, the loss's anchor matching, the fused identity bottleneck and
 the per-row top-2 classes (``kernels``); everything else is plain PyTorch on
 cuDNN. The package imports neither JAX nor the JAX package.
+
+The reference's surface::
+
+    from pytorch_retinanet_tpu_torch import OmegaConf, RetinaNetModel, Trainer
+    conf = OmegaConf.create({...})   # OmegaConf.load(path) where PyYAML is installed
+    Trainer(max_epochs=10, checkpoint_dir="checkpoints").fit(RetinaNetModel(conf))
 """
 
-from . import config, data, engine, kernels, models, ops
-from .config import ConfigDict
+from . import config, data, engine, kernels, models, ops, utils
+from .config import ConfigDict, OmegaConf, default_hparams, ifnone, load_config
 from .engine import RetinaNetModel, Trainer
 from .kernels import KERNELS
-from .models import Retinanet, RetinaNetModule, apply_detector, from_jax_variables
+from .models import (
+    AnchorGenerator,
+    Retinanet,
+    RetinaNetModule,
+    apply_detector,
+    from_jax_variables,
+)
 
 __all__ = [
+    "AnchorGenerator",
     "ConfigDict",
     "KERNELS",
+    "OmegaConf",
     "RetinaNetModel",
     "RetinaNetModule",
     "Retinanet",
@@ -24,9 +38,13 @@ __all__ = [
     "apply_detector",
     "config",
     "data",
+    "default_hparams",
     "engine",
     "from_jax_variables",
+    "ifnone",
     "kernels",
+    "load_config",
     "models",
     "ops",
+    "utils",
 ]

@@ -1,15 +1,20 @@
-"""Default constants of the detector, :func:`ifnone` and :class:`ConfigDict`.
+"""Default constants of the detector, :func:`ifnone`, :class:`ConfigDict`,
+the ``OmegaConf`` shim, :func:`load_config` and :func:`default_hparams`.
 
 The values are those of ``pytorch_retinanet_tpu/config.py`` (the reference's
 ``retinanet/config.py:12-87``). The port keeps its own copy: it imports
-nothing of the JAX package. :class:`ConfigDict` is that module's
-attribute-access dict; its YAML loading (``OmegaConf``) is left out because
-the machine with the card has no ``yaml``: build the config from a dict.
+nothing of the JAX package. PyYAML is imported only where YAML is read, so
+the package imports without it; where it is missing, ``OmegaConf.load`` and
+``OmegaConf.create(str)`` raise, and ``OmegaConf.to_yaml`` writes block YAML
+itself (the loggers' ``hparams.yaml``).
 """
 
 from __future__ import annotations
 
 import copy
+import json
+import math
+import re
 from typing import Any, List, Mapping, Optional
 
 # Input normalisation and resize rule.
@@ -90,8 +95,23 @@ class ConfigDict(dict):
     def __setattr__(self, key: str, value: Any) -> None:
         self[key] = value
 
+    def __delattr__(self, key: str) -> None:
+        if key in self:
+            del self[key]
+
     def __deepcopy__(self, memo) -> "ConfigDict":
         return ConfigDict({k: copy.deepcopy(v, memo) for k, v in self.items()})
+
+    def to_dict(self) -> dict:
+        """Plain nested dicts and lists."""
+        def unwrap(v):
+            if isinstance(v, ConfigDict):
+                return {k: unwrap(x) for k, x in v.items()}
+            if isinstance(v, list):
+                return [unwrap(x) for x in v]
+            return v
+
+        return unwrap(self)
 
     def merge(self, other: Mapping) -> "ConfigDict":
         """Deep-merge `other` into a copy of self (other wins)."""
@@ -102,3 +122,158 @@ class ConfigDict(dict):
             else:
                 out[k] = v
         return out
+
+
+def _yaml():
+    try:
+        import yaml
+    except ImportError as e:
+        raise ImportError("reading YAML needs PyYAML, which is not installed; build the "
+                          "config from a dict with OmegaConf.create({...})") from e
+    return yaml
+
+
+# Plain scalars that YAML would read as something other than this string.
+_YAML_WORDS = {"", "~", "null", "true", "false", "yes", "no", "on", "off", "y", "n"}
+_PLAIN = re.compile(r"[A-Za-z_][A-Za-z0-9_./-]*\Z")
+
+
+def _yaml_scalar(v: Any) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if math.isnan(v):
+            return ".nan"
+        if math.isinf(v):
+            return ".inf" if v > 0 else "-.inf"
+        r = repr(v)
+        mantissa, _, exponent = r.partition("e")
+        if "." not in mantissa:  # PyYAML reads a float only with a dot in it
+            mantissa += ".0"
+        return mantissa + ("e" + exponent if exponent else "")
+    v = str(v)
+    if _PLAIN.match(v) and v.lower() not in _YAML_WORDS:
+        return v
+    return json.dumps(v)  # a double-quoted YAML scalar
+
+
+def _yaml_lines(v: Any, indent: str) -> List[str]:
+    if isinstance(v, Mapping) and v:
+        out = []
+        for k, x in v.items():
+            key = _yaml_scalar(k)
+            if isinstance(x, (Mapping, list, tuple)) and x:
+                out.append(f"{indent}{key}:")
+                out += _yaml_lines(x, indent + ("" if isinstance(x, (list, tuple)) else "  "))
+            else:
+                out.append(f"{indent}{key}: {_yaml_block(x)}")
+        return out
+    if isinstance(v, (list, tuple)) and v:
+        out = []
+        for x in v:
+            if isinstance(x, (Mapping, list, tuple)) and x:
+                inner = _yaml_lines(x, indent + "  ")
+                out.append(f"{indent}- {inner[0][len(indent) + 2:]}")
+                out += inner[1:]
+            else:
+                out.append(f"{indent}- {_yaml_block(x)}")
+        return out
+    return [indent + _yaml_block(v)]
+
+
+def _yaml_block(v: Any) -> str:
+    if isinstance(v, Mapping):
+        return "{}"
+    if isinstance(v, (list, tuple)):
+        return "[]"
+    return _yaml_scalar(v)
+
+
+def to_block_yaml(data: Any) -> str:
+    """Block YAML of nested dicts, lists and scalars, without PyYAML;
+    ``yaml.safe_load`` reads it back to `data`."""
+    return "\n".join(_yaml_lines(data, "")) + "\n"
+
+
+class OmegaConf:
+    """The ``OmegaConf`` calls reference-style user code makes: ``load``,
+    ``create``, ``merge``, ``to_container``, ``to_yaml``."""
+
+    @staticmethod
+    def load(path: str) -> ConfigDict:
+        yaml = _yaml()
+        with open(path) as f:
+            return ConfigDict(yaml.safe_load(f) or {})
+
+    @staticmethod
+    def create(data: Optional[Mapping] = None) -> ConfigDict:
+        if isinstance(data, str):
+            return ConfigDict(_yaml().safe_load(data) or {})
+        return ConfigDict(data or {})
+
+    @staticmethod
+    def merge(*configs: Mapping) -> ConfigDict:
+        out = ConfigDict()
+        for c in configs:
+            out = out.merge(c)
+        return out
+
+    @staticmethod
+    def to_container(conf: ConfigDict) -> dict:
+        return conf.to_dict()
+
+    @staticmethod
+    def to_yaml(conf: ConfigDict) -> str:
+        data = conf.to_dict() if isinstance(conf, ConfigDict) else ConfigDict(conf).to_dict()
+        try:
+            import yaml
+        except ImportError:
+            return to_block_yaml(data)
+        return yaml.safe_dump(data, sort_keys=False)
+
+
+def load_config(path: str) -> ConfigDict:
+    """Load a YAML config file into a :class:`ConfigDict` (needs PyYAML)."""
+    return OmegaConf.load(path)
+
+
+def default_hparams() -> ConfigDict:
+    """The reference ``hparams.yaml``'s top-level sections, with defaults."""
+    return ConfigDict(
+        {
+            "model": {
+                "backbone_kind": BACKBONE,
+                "num_classes": NUM_CLASSES,
+                "freeze_bn": FREEZE_BN,
+                "min_size": MIN_IMAGE_SIZE,
+                "max_size": MAX_IMAGE_SIZE,
+                "pretrained": False,
+            },
+            "dataset": {
+                "kind": False,
+                "root_dir": False,
+                "trn_paths": False,
+                "valid_paths": False,
+                "test_paths": False,
+            },
+            "dataloader": {"train_bs": 2, "valid_bs": 8, "test_bs": 8, "args": {"num_workers": 0}},
+            "transforms": [
+                {"class_name": "albumentations.HorizontalFlip", "params": {"p": 0.5}}
+            ],
+            "optimizer": {
+                "class_name": "torch.optim.SGD",
+                "params": {"lr": 0.001, "weight_decay": 0.001, "momentum": 0.9},
+            },
+            "scheduler": {
+                "class_name": None,
+                "params": {},
+                "interval": "epoch",
+                "frequency": 1,
+                "monitor": False,
+            },
+        }
+    )

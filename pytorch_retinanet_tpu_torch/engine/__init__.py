@@ -1,5 +1,14 @@
-"""Training engine of the port: optimizers and schedulers, the task model, the Trainer."""
+"""Training engine of the port: optimizers and schedulers, the task model,
+the Trainer, its callbacks and loggers."""
 
+from .callbacks import (
+    Callback,
+    CSVLogger,
+    EarlyStopping,
+    LearningRateMonitor,
+    ModelCheckpoint,
+    TensorBoardLogger,
+)
 from .model import RetinaNetModel
 from .optim import (
     OPTIMIZER_REGISTRY,
@@ -16,10 +25,16 @@ from .optim import (
 from .trainer import Trainer
 
 __all__ = [
+    "CSVLogger",
+    "Callback",
+    "EarlyStopping",
     "LRScheduler",
+    "LearningRateMonitor",
+    "ModelCheckpoint",
     "OPTIMIZER_REGISTRY",
     "RetinaNetModel",
     "SCHEDULER_REGISTRY",
+    "TensorBoardLogger",
     "Trainer",
     "build_optimizer",
     "build_scheduler",

@@ -180,6 +180,15 @@ class GradientAccumulation:
         self._apply()
         return True
 
+    def state_dict(self) -> Dict[str, Any]:
+        """The optimizer's state. Checkpoints are written at window
+        boundaries, where nothing is accumulated."""
+        return self.optimizer.state_dict()
+
+    def load_state_dict(self, state: Mapping[str, Any]) -> None:
+        self.optimizer.load_state_dict(state)
+        self.mini_step = 0
+
     def flush(self) -> bool:
         """Step on a partial window, if there is one."""
         if not self.mini_step:

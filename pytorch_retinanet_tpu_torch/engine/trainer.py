@@ -1,26 +1,40 @@
-"""Trainer: the fit loop, validation and the step functions, single process.
+"""Trainer: the fit loop, validation, checkpoints and the step functions, single process.
 
 Counterpart of ``pytorch_retinanet_tpu/engine/trainer.py`` (a
 ``pytorch_lightning.Trainer`` 1.0 look-alike) with the same loop design and
 knobs, and without its JAX mechanics (``jit``, donation, meshes): the state
-is the module's parameters and the ``torch.optim`` state, updated in place.
+is the module's parameters and buffers and the ``torch.optim`` state,
+updated in place.
 
-A train step is the forward through the module's own stem (never the fused
-stem, as the JAX trainer trains), the per-level loss (whose targets come
-from the match kernel on CUDA), ``backward``, the global-norm clip when not
-accumulating, and the optimizer step. Frozen batch norm only.
+A train step runs the module in training mode (live batch statistics when
+it was built with ``freeze_bn=False``) through its own stem (never the
+fused stem, as the JAX trainer trains), the per-level loss (whose targets
+come from the match kernel on CUDA), ``backward``, the global-norm clip
+when not accumulating, and the optimizer step. Validation runs in eval
+mode, on the running statistics.
 
-Not ported yet, and raising ``NotImplementedError`` with their ROADMAP item
-when set: callbacks and checkpoints (``checkpoint_dir`` defaults to None
-until checkpoints land), ``resume_from_checkpoint``, ``auto_resume``, the
-interrupt handler (``save_on_interrupt``), ``profile_dir``, ``mesh`` /
-``devices``, an experiment ``logger`` object, and ``Trainer.test`` /
-``Trainer.predict``.
+Checkpoints are one ``torch.save`` file per directory
+(``<dir>/checkpoint.pt``: module state, optimizer state, completed epochs,
+``global_step``, the pre-warmup LR and the scheduler's versioned state),
+written under a temporary name and renamed into place, and readable with
+``torch.load(..., weights_only=True)``. ``checkpoint_dir`` defaults to None
+here (the JAX Trainer's is ``"checkpoints"``): a fit writes nothing unless
+asked. With ``save_on_interrupt`` (the default) SIGTERM or SIGINT during
+``fit`` saves ``<checkpoint_dir>/interrupt`` at the next step boundary (a
+signal that lands while the loader fetches a batch stops before that
+batch's step) and returns; ``auto_resume`` continues from the newer of
+``interrupt`` and ``last``.
+
+Not ported yet: ``mesh`` / ``devices`` (ROADMAP A9) and ``Trainer.test`` /
+``Trainer.predict`` (ROADMAP A8), which raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import signal
+import threading
 import warnings
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -28,7 +42,8 @@ import numpy as np
 import torch
 
 from ..ops import retinanet_loss_levels
-from ..utils.metrics import MetricLogger
+from ..utils.metrics import MetricLogger, ProfilerHook, device_memory_stats
+from .callbacks import Callback, ModelCheckpoint
 from .model import RetinaNetModel
 from .optim import (
     GradientAccumulation,
@@ -44,12 +59,16 @@ logger = logging.getLogger(__name__)
 
 Tensor = torch.Tensor
 
+CHECKPOINT_FILE = "checkpoint.pt"
+
 
 class Trainer:
     """``Trainer(...).fit(model)`` and ``.validate(model)``.
 
     Accepts and ignores the torch-specific ``gpus`` and ``precision``: the
-    device is the model's, and the compute dtype is the model's.
+    device is the model's, and the compute dtype is the model's. ``logger``
+    takes an experiment logger callback (``CSVLogger``,
+    ``TensorBoardLogger``); True, False and None mean none.
     """
 
     def __init__(
@@ -68,7 +87,7 @@ class Trainer:
         profile_dir: Optional[str] = None,
         mesh: Any = None,
         devices: Any = None,
-        save_on_interrupt: bool = False,
+        save_on_interrupt: bool = True,
         auto_resume: bool = False,
         logger: Any = True,
         limit_train_batches: Any = 1.0,
@@ -87,29 +106,33 @@ class Trainer:
                 "effect (gpus/precision are absorbed by design).",
                 UserWarning, stacklevel=2,
             )
+        for name, value in (("mesh", mesh), ("devices", devices)):
+            if value:
+                raise NotImplementedError(
+                    f"Trainer({name}=...) is ROADMAP A9 (distributed): not ported yet")
         # fast_dev_run=n: one epoch of n train and n val batches, no sanity
-        # check and no checkpointing (Lightning 1.0 semantics).
+        # check, no checkpointing and no experiment logger (Lightning 1.0).
         if fast_dev_run:
             max_epochs, max_steps = 1, None
             limit_train_batches = limit_val_batches = int(fast_dev_run)
             num_sanity_val_steps = 0
             checkpoint_dir = resume_from_checkpoint = None
             auto_resume = False
-        later = [
-            ("callbacks", callbacks, "A7 (callbacks and checkpoints)"),
-            ("checkpoint_dir", checkpoint_dir, "A7 (checkpoints with torch.save)"),
-            ("resume_from_checkpoint", resume_from_checkpoint, "A7 (resume)"),
-            ("auto_resume", auto_resume, "A7 (resume)"),
-            ("save_on_interrupt", save_on_interrupt, "A7 (the interrupt handler)"),
-            ("profile_dir", profile_dir, "A7 (ProfilerHook)"),
-            ("mesh", mesh, "A9 (distributed)"),
-            ("devices", devices, "A9 (distributed)"),
-            ("logger", None if isinstance(logger, bool) or logger is None else logger,
-             "A7 (experiment loggers, TensorBoard)"),
-        ]
-        for name, value, item in later:
-            if value:
-                raise NotImplementedError(f"Trainer({name}=...) is ROADMAP {item}: not ported yet")
+            callbacks = [c for c in (callbacks or []) if not isinstance(c, ModelCheckpoint)]
+            logger = None
+        self.callbacks: List[Callback] = list(callbacks or [])
+        if checkpoint_dir and not any(isinstance(c, ModelCheckpoint) for c in self.callbacks):
+            self.callbacks.append(ModelCheckpoint(checkpoint_dir))
+        self.logger = logger if isinstance(logger, Callback) else None
+        if self.logger is not None:
+            self.callbacks.append(self.logger)
+        self.resume_from_checkpoint = resume_from_checkpoint
+        self.auto_resume = auto_resume
+        # SIGTERM / SIGINT during fit: save <checkpoint_dir>/interrupt at the
+        # next step boundary and return (a second signal aborts).
+        self.save_on_interrupt = save_on_interrupt
+        self._interrupted = False
+        self.profiler = ProfilerHook(profile_dir)
         self.limit_train_batches = limit_train_batches
         self.limit_val_batches = limit_val_batches
         # overfit_batches=n: train on a fixed, unshuffled slice of n train
@@ -191,8 +214,10 @@ class Trainer:
         return losses
 
     def train_step(self, batch: Dict[str, Any]) -> Dict[str, Tensor]:
-        """Forward, loss, backward and (at a window's end) the optimizer
-        step on one batch; returns the losses, detached, on the device."""
+        """Forward (training mode), loss, backward and (at a window's end)
+        the optimizer step on one batch; returns the losses, detached, on
+        the device."""
+        self._model.net.module.train()
         losses = self._losses(batch, "mean")
         losses["loss"].backward()
         if isinstance(self._optimizer, GradientAccumulation):
@@ -206,20 +231,72 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, Any]) -> Dict[str, Tensor]:
-        """Per-image [B] losses, so that padding rows can be masked out."""
+        """Per-image [B] losses (eval mode), so that padding rows can be
+        masked out."""
+        self._model.net.module.eval()
         return self._losses(batch, "none")
+
+    # ------------------------------------------------------------------ #
+    # Loops
+    # ------------------------------------------------------------------ #
+    # ------------------------------------------------------------------ #
+    # Checkpoints
+    # ------------------------------------------------------------------ #
+    def save_checkpoint(self, path: str, completed_epochs: Optional[int] = None) -> None:
+        """Write ``<path>/checkpoint.pt``: the module's parameters and
+        buffers, the optimizer's state, ``epoch`` (epochs completed: this
+        one, unless an interrupt save passes the interrupted epoch so that
+        the resume re-runs it), ``global_step``, the pre-warmup LR and the
+        scheduler's versioned state. A temporary file is renamed into place,
+        so an interrupted save leaves the previous checkpoint whole."""
+        if self._model is None:
+            return
+        ckpt = {
+            "module": self._model.net.module.state_dict(),
+            "optimizer": self._optimizer.state_dict(),
+            "epoch": self.current_epoch + 1 if completed_epochs is None else int(completed_epochs),
+            "global_step": self.global_step,
+            "sched_lr": float(self._sched_lr),
+            "scheduler_state": self._scheduler.state_dict(),
+        }
+        os.makedirs(path, exist_ok=True)
+        final = os.path.join(path, CHECKPOINT_FILE)
+        torch.save(ckpt, final + ".tmp")
+        os.replace(final + ".tmp", final)
+
+    def restore_checkpoint(self, path: str) -> None:
+        """Restore everything :meth:`save_checkpoint` wrote into the fitted
+        model, optimizer and scheduler, onto the model's device."""
+        ckpt = torch.load(os.path.join(path, CHECKPOINT_FILE), map_location=self._model.net.device,
+                          weights_only=True)
+        self._model.net.module.load_state_dict(ckpt["module"])
+        self._optimizer.load_state_dict(ckpt["optimizer"])
+        self.current_epoch = int(ckpt["epoch"])
+        self.global_step = int(ckpt["global_step"])
+        self._sched_lr = float(ckpt["sched_lr"])
+        self._scheduler.load_state_dict(ckpt["scheduler_state"])
+
+    def _checkpoint_dirs(self) -> List[str]:
+        return [c.dirpath for c in self.callbacks if isinstance(c, ModelCheckpoint)]
+
+    def _latest_checkpoint(self) -> Optional[str]:
+        """The newer (by mtime) of ``interrupt`` and ``last`` in the
+        ModelCheckpoint directories; ``best`` is never a training frontier."""
+        candidates = [os.path.join(d, name) for d in self._checkpoint_dirs()
+                      for name in ("interrupt", "last")
+                      if os.path.isfile(os.path.join(d, name, CHECKPOINT_FILE))]
+        if not candidates:
+            return None
+        return max(candidates, key=lambda c: os.path.getmtime(os.path.join(c, CHECKPOINT_FILE)))
 
     # ------------------------------------------------------------------ #
     # Loops
     # ------------------------------------------------------------------ #
     def fit(self, model: RetinaNetModel) -> Dict[str, float]:
         """Train: ``max_epochs`` epochs or ``max_steps`` optimizer steps."""
-        if not model.net.freeze_bn:
-            raise NotImplementedError(
-                "training with freeze_bn=False (live batch statistics) is ROADMAP A7; "
-                "build the model with freeze_bn=True"
-            )
         self._model = model
+        if self.logger is not None and getattr(model, "hparams", None) is not None:
+            self.logger.log_hyperparams(model.hparams)
         model.prepare_data()
         self._optimizer, self._scheduler, self._sched_meta = model.configure_optimizers()
         self._optimizer = self._wrap_optimizer(self._optimizer)
@@ -236,6 +313,13 @@ class Trainer:
         init_m = self._scheduler.momentum_at(0)
         if init_m is not None:
             set_momentum(self._optimizer, init_m)
+        resume_path = self.resume_from_checkpoint
+        if not resume_path and self.auto_resume:
+            resume_path = self._latest_checkpoint()
+            if resume_path:
+                logger.info("auto_resume: continuing from %s", resume_path)
+        if resume_path:
+            self.restore_checkpoint(resume_path)
         self.current_lr = current_learning_rate(self._optimizer)
 
         train_loader = model.train_dataloader()
@@ -259,8 +343,50 @@ class Trainer:
         metrics: Dict[str, float] = {}
         if self.num_sanity_val_steps and not self.overfit_batches:
             self._sanity_check(model)
-        self._fit_loop(model, train_loader, metrics)
+        installed = self._install_interrupt_handlers()
+        try:
+            self._fit_loop(model, train_loader, metrics)
+        finally:
+            for sig, prev in installed.items():
+                signal.signal(sig, prev)
+            # The trace of the steps before a failure is the one most wanted.
+            self.profiler.close()
+            model.net.module.eval()
+        for cb in self.callbacks:
+            cb.on_train_end(self)
         return metrics
+
+    def _install_interrupt_handlers(self) -> Dict[Any, Any]:
+        """SIGTERM / SIGINT set a flag the loop reads at the next step
+        boundary; a second signal raises ``KeyboardInterrupt``. Returns the
+        previous handlers, {} when disabled or off the main thread (where
+        ``signal.signal`` cannot be called)."""
+        self._interrupted = False
+        if not self.save_on_interrupt or threading.current_thread() is not threading.main_thread():
+            return {}
+
+        def on_signal(signum, frame):
+            if self._interrupted:
+                raise KeyboardInterrupt
+            self._interrupted = True
+            logger.warning("received %s: checkpointing at the next step boundary (signal "
+                           "again to abort without saving)", signal.Signals(signum).name)
+
+        return {sig: signal.signal(sig, on_signal) for sig in (signal.SIGTERM, signal.SIGINT)}
+
+    def _save_interrupt_checkpoint(self) -> None:
+        """Save ``<checkpoint_dir>/interrupt`` with the interrupted epoch not
+        counted as completed: the resume re-runs it, with the schedule's
+        counters carrying the partial progress."""
+        dirs = self._checkpoint_dirs()
+        if not dirs:
+            logger.warning("interrupted, but no ModelCheckpoint is configured: nothing saved "
+                           "(pass checkpoint_dir= to Trainer)")
+            return
+        path = os.path.join(dirs[0], "interrupt")
+        self.save_checkpoint(path, completed_epochs=self.current_epoch)
+        logger.warning("interrupt checkpoint saved; resume with "
+                       "Trainer(resume_from_checkpoint=%r).fit(model)", path)
 
     def _sanity_check(self, model: RetinaNetModel) -> None:
         """Run a few validation batches before training, outputs discarded,
@@ -293,9 +419,12 @@ class Trainer:
             for bi, batch in enumerate(self.logger_.log_every(train_loader, header=f"epoch {epoch}")):
                 if self._train_batch_limit is not None and bi >= self._train_batch_limit:
                     break
+                if self._interrupted:  # signalled while the loader fetched this batch
+                    break
                 self._apply_warmup()
                 step_metrics = self.train_step(batch)
                 self.global_step += 1
+                self.profiler.step(self.global_step)
                 # Metrics stay on the device between logged steps: reading
                 # them is a host sync.
                 logged = self.global_step % self.logger_.print_freq == 0
@@ -307,19 +436,30 @@ class Trainer:
                 if self.max_steps and self._opt_step >= self.max_steps:
                     self.should_stop = True
                     break
+                if self._interrupted:
+                    break
             self._flush_accumulation(interval, frequency)
             if step_metrics is not None and not logged:
                 self._log_step(step_metrics, metrics)
+            if self._interrupted:
+                # No validation, epoch scheduler step or epoch callbacks: the
+                # epoch does not count as completed.
+                self._save_interrupt_checkpoint()
+                self.should_stop = True
+                break
 
             if (epoch + 1) % self.val_check_interval == 0:
                 metrics.update(self._run_validation(model))
             if interval == "epoch" and (epoch + 1) % frequency == 0:
                 self._step_scheduler(metrics.get(monitor) if monitor else None)
             metrics["lr"] = self.current_lr
-            if not mem_logged and model.net.device.type == "cuda":
+            if not mem_logged:
                 mem_logged = True  # once per fit
-                logger.info("device memory: peak %.1f MiB",
-                            torch.cuda.max_memory_allocated(model.net.device) / 2**20)
+                mem = device_memory_stats()
+                if mem:
+                    logger.info("device memory: %s", mem)
+            for cb in self.callbacks:
+                cb.on_epoch_end(self, metrics)
             if self.should_stop:
                 break
 
@@ -402,7 +542,9 @@ class Trainer:
         return self._run_validation(model)
 
     def test(self, model: RetinaNetModel):
-        raise NotImplementedError("Trainer.test (COCO evaluation) is ROADMAP A7, with A8's evaluator")
+        raise NotImplementedError("Trainer.test (COCO evaluation) is ROADMAP A8 (data and eval): "
+                                  "not ported yet")
 
     def predict(self, model: RetinaNetModel, loader=None):
-        raise NotImplementedError("Trainer.predict is ROADMAP A7; use Retinanet.predict")
+        raise NotImplementedError("Trainer.predict is ROADMAP A8 (data and eval, its "
+                                  "DetectionLoader): not ported yet; use Retinanet.predict")

@@ -119,7 +119,7 @@ def bottleneck_plain(x: Tensor, w1: Tensor, s1: Tensor, b1: Tensor, w2: Tensor, 
 def bottleneck_args(block) -> Tuple[Tensor, ...]:
     """The kernel's arguments from a port ``Bottleneck`` (stride 1, no downsample).
 
-    Frozen BN folded with ``FrozenBatchNorm2d.folded()`` (f32), weights in
+    Frozen BN folded with ``BatchNorm2d.folded()`` (f32), weights in
     GEMM layout as bf16: ``(w1 [C, mid], s1, b1, w2 [9, mid, mid], s2, b2,
     w3 [mid, C], s3, b3)``. Differentiable in the block's parameters.
     """

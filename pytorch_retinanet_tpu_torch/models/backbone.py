@@ -5,17 +5,35 @@ parameter names are torchvision's (``conv1``, ``bn1``, ``layer{1-4}.{i}``,
 ``downsample.{0,1}``), so a torchvision ImageNet checkpoint and the
 reference detector's ``backbone.backbone.*`` keys load as they are.
 Bottlenecks put the stride on the 3x3 (ResNet V1.5).
+
+As in JAX ``models/backbone.py:135-163``: ``freeze_bn=False`` makes every
+batch norm live in training mode; ``remat`` recomputes each residual
+block's activations in backward (``torch.utils.checkpoint``, in training
+only), with the live statistics updated in the first pass alone; and
+``stem_s2d`` runs the stem as a 4x4 stride-1 conv over the space-to-depth
+image, repacked per call from the stored 7x7 weight.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from .layers import FrozenBatchNorm2d, conv, conv_layer, max_pool_torch
+from .layers import (
+    BatchNorm2d,
+    conv,
+    conv_layer,
+    max_pool_torch,
+    recomputing,
+    space_to_depth_2x,
+    stem_weight_to_s2d,
+)
 
 Tensor = torch.Tensor
 
@@ -43,7 +61,7 @@ def backbone_out_channels(kind: str) -> Tuple[int, int, int]:
 
 class _Downsample(nn.Sequential):
     def __init__(self, cin: int, cout: int, stride: int):
-        super().__init__(conv_layer(cin, cout, 1, stride), FrozenBatchNorm2d(cout))
+        super().__init__(conv_layer(cin, cout, 1, stride), BatchNorm2d(cout))
 
     def forward(self, x: Tensor) -> Tensor:
         return self[1](conv(self[0], x))
@@ -57,9 +75,9 @@ class BasicBlock(nn.Module):
     def __init__(self, cin: int, width: int, stride: int = 1):
         super().__init__()
         self.conv1 = conv_layer(cin, width, 3, stride)
-        self.bn1 = FrozenBatchNorm2d(width)
+        self.bn1 = BatchNorm2d(width)
         self.conv2 = conv_layer(width, width, 3)
-        self.bn2 = FrozenBatchNorm2d(width)
+        self.bn2 = BatchNorm2d(width)
         self.downsample = (
             _Downsample(cin, width, stride) if stride != 1 or cin != width else None
         )
@@ -80,11 +98,11 @@ class Bottleneck(nn.Module):
         super().__init__()
         cout = width * 4
         self.conv1 = conv_layer(cin, width, 1)
-        self.bn1 = FrozenBatchNorm2d(width)
+        self.bn1 = BatchNorm2d(width)
         self.conv2 = conv_layer(width, width, 3, stride)
-        self.bn2 = FrozenBatchNorm2d(width)
+        self.bn2 = BatchNorm2d(width)
         self.conv3 = conv_layer(width, cout, 1)
-        self.bn3 = FrozenBatchNorm2d(cout)
+        self.bn3 = BatchNorm2d(cout)
         self.downsample = (
             _Downsample(cin, cout, stride) if stride != 1 or cin != cout else None
         )
@@ -100,14 +118,15 @@ class Bottleneck(nn.Module):
 class ResNet(nn.Module):
     """ResNet trunk: stem, four stages, returning {"c3", "c4", "c5"}."""
 
-    def __init__(self, kind: str = "resnet50"):
+    def __init__(self, kind: str = "resnet50", freeze_bn: bool = True, remat: bool = False,
+                 stem_s2d: bool = False):
         super().__init__()
         if kind not in RESNET_SPECS:
             raise ValueError(f"backbone kind must be one of {sorted(RESNET_SPECS)}, got {kind!r}")
         block_kind, depths = RESNET_SPECS[kind]
         block_cls = BasicBlock if block_kind == "basic" else Bottleneck
         self.conv1 = conv_layer(3, 64, 7, 2)
-        self.bn1 = FrozenBatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         cin = 64
         for stage, (depth, width) in enumerate(zip(depths, (64, 128, 256, 512)), start=1):
             blocks = []
@@ -116,19 +135,38 @@ class ResNet(nn.Module):
                 blocks.append(block_cls(cin, width, stride))
                 cin = width * block_cls.expansion
             self.add_module(f"layer{stage}", nn.Sequential(*blocks))
+        self.remat = remat
+        self.stem_s2d = stem_s2d
+        for m in self.modules():
+            if isinstance(m, BatchNorm2d):
+                m.frozen = freeze_bn
 
     def stem(self, x: Tensor) -> Tensor:
-        """The unfused stem: conv 7x7 s2, BN, ReLU, max pool 3x3 s2."""
-        return max_pool_torch(self.bn1(conv(self.conv1, x), relu=True), 3, 2)
+        """The unfused stem: conv 7x7 s2 (or its space-to-depth form), BN,
+        ReLU, max pool 3x3 s2."""
+        if self.stem_s2d:
+            w = stem_weight_to_s2d(self.conv1.weight).to(x.dtype)
+            y = F.conv2d(F.pad(space_to_depth_2x(x), (2, 1, 2, 1)), w)
+        else:
+            y = conv(self.conv1, x)
+        return max_pool_torch(self.bn1(y, relu=True), 3, 2)
+
+    def _stage(self, layer: nn.Sequential, x: Tensor) -> Tensor:
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return layer(x)
+        for block in layer:
+            x = checkpoint(block, x, use_reentrant=False,
+                           context_fn=lambda: (contextlib.nullcontext(), recomputing()))
+        return x
 
     def forward(self, x: Tensor, stem_in: Optional[Tensor] = None) -> Dict[str, Tensor]:
         """`x` is the normalized NCHW image in the compute dtype; `stem_in`,
         when given, is the fused stem's output and replaces the stem."""
         x = self.stem(x) if stem_in is None else stem_in
-        x = self.layer1(x)
-        c3 = self.layer2(x)
-        c4 = self.layer3(c3)
-        c5 = self.layer4(c4)
+        x = self._stage(self.layer1, x)
+        c3 = self._stage(self.layer2, x)
+        c4 = self._stage(self.layer3, c3)
+        c5 = self._stage(self.layer4, c4)
         return {"c3": c3, "c4": c4, "c5": c5}
 
     @torch.no_grad()
@@ -143,9 +181,9 @@ class ResNet(nn.Module):
 class BackBone(nn.Module):
     """Holds the trunk as ``backbone`` (the reference's ``backbone.backbone.*`` keys)."""
 
-    def __init__(self, kind: str = "resnet50"):
+    def __init__(self, kind: str = "resnet50", **options):
         super().__init__()
-        self.backbone = ResNet(kind)
+        self.backbone = ResNet(kind, **options)
 
     def forward(self, x: Tensor, stem_in: Optional[Tensor] = None) -> Dict[str, Tensor]:
         return self.backbone(x, stem_in)

@@ -6,12 +6,16 @@ Conventions of the port, mirroring ``pytorch_retinanet_tpu/models/layers.py``:
   asks for it (the model does, on the card), so cuDNN runs NHWC.
 * Parameters are f32; convolutions run in the compute dtype (bf16 by
   default), with the weights cast per call.
-* Batch norm is frozen: running statistics, applied in f32 and rounded to
-  the compute dtype.
+* Batch norm is frozen by default: running statistics, applied in f32 and
+  rounded to the compute dtype. A live one (``frozen=False``, in training
+  mode) normalizes with the batch's statistics and updates the running ones
+  as flax's ``nn.BatchNorm`` does.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Sequence
 
 import torch
@@ -32,17 +36,41 @@ def conv_layer(cin: int, cout: int, k: int, stride: int = 1, bias: bool = False)
     return nn.Conv2d(cin, cout, k, stride=stride, padding=(k - 1) // 2, bias=bias)
 
 
-class FrozenBatchNorm2d(nn.Module):
-    """Batch norm on running statistics, with torchvision's parameter names.
+_RECOMPUTE = threading.local()
 
-    Computes ``(x - mean) / sqrt(var + eps) * weight + bias`` in f32 and
-    returns it in the dtype of `x`. :meth:`folded` gives the same map as a
-    per-channel ``scale`` and ``shift``, the form the fused stem takes.
+
+@contextlib.contextmanager
+def recomputing():
+    """Marks a rematerialized forward (the recompute in backward of
+    ``torch.utils.checkpoint``): live batch norms leave their running
+    statistics alone inside it, so that a step updates them once."""
+    prev = getattr(_RECOMPUTE, "on", False)
+    _RECOMPUTE.on = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.on = prev
+
+
+class BatchNorm2d(nn.Module):
+    """Batch norm with torchvision's parameter names, frozen or live.
+
+    Frozen (the default), or live outside training mode: ``(x - mean) /
+    sqrt(var + eps) * weight + bias`` on the running statistics, in f32,
+    returned in the dtype of `x`. Live in training mode: the same on the
+    batch's mean and biased variance over (N, H, W), computed in f32, and
+    ``running = 0.9 * running + 0.1 * batch`` with the biased variance,
+    flax's ``nn.BatchNorm(momentum=0.9)``. :meth:`folded`
+    gives the running map as a per-channel ``scale`` and ``shift``, the form
+    the fused stem takes.
     """
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    momentum = 0.9  # flax's convention: the running statistics' own weight
+
+    def __init__(self, num_features: int, eps: float = 1e-5, frozen: bool = True):
         super().__init__()
         self.eps = eps
+        self.frozen = frozen
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -54,10 +82,25 @@ class FrozenBatchNorm2d(nn.Module):
         return scale, self.bias - self.running_mean * scale
 
     def forward(self, x: Tensor, relu: bool = False) -> Tensor:
-        # Eval-mode batch_norm: f32 math on f32 statistics, one rounding into
-        # x's dtype, one pass over the activation (cuDNN on the card).
-        y = F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                         False, 0.0, self.eps)
+        if self.frozen or not self.training:
+            # Eval-mode batch_norm: f32 math on f32 statistics, one rounding
+            # into x's dtype, one pass over the activation (cuDNN on the card).
+            y = F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                             False, 0.0, self.eps)
+        else:
+            # Train-mode batch_norm normalizes with the biased variance; with
+            # momentum 1 it writes the batch mean and the *unbiased* variance
+            # into the scratch buffers, which the update below corrects.
+            mean = torch.zeros_like(self.running_mean)
+            var = torch.ones_like(self.running_var)
+            y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+            if not getattr(_RECOMPUTE, "on", False):
+                n = x.numel() // x.shape[1]
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+                    self.running_var.mul_(m).add_(var, alpha=(1.0 - m) * (n - 1) / n)
+                    self.num_batches_tracked.add_(1)
         return torch.relu_(y) if relu else y
 
 
@@ -80,3 +123,27 @@ def nearest_upsample_to(x: Tensor, target_hw: Sequence[int]) -> Tensor:
     y = x.permute(0, 2, 3, 1)[:, :, None, :, None, :].expand(n, h, rh, w, rw, c)
     y = y.reshape(n, h * rh, w * rw, c)[:, :th, :tw, :]
     return y.permute(0, 3, 1, 2)
+
+
+def space_to_depth_2x(x: Tensor) -> Tensor:
+    """NCHW [B, C, H, W] -> [B, 4C, H/2, W/2], channel order (dy, dx, c).
+
+    The stem's 7x7 stride-2 conv over 3 channels is exactly a 4x4 stride-1
+    conv over these 12 (:func:`stem_weight_to_s2d`), padded (2, 1) on each
+    spatial axis, as the JAX package's ``stem_s2d`` computes it.
+    """
+    b, c, h, w = x.shape
+    x = x.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(b, 4 * c, h // 2, w // 2)
+
+
+def stem_weight_to_s2d(w7: Tensor) -> Tensor:
+    """OIHW [Cout, Cin, 7, 7] stride-2 kernel -> the [Cout, 4 Cin, 4, 4]
+    stride-1 kernel computing the same conv on :func:`space_to_depth_2x`
+    input: zero-padded to 8x8 at the top-left, then 2x2 taps into channels
+    (JAX ``stem_kernel_to_s2d``). Differentiable, so it is repacked per call
+    from the stored 7x7 weight."""
+    cout, cin = w7.shape[:2]
+    w8 = F.pad(w7, (1, 0, 1, 0))
+    w8 = w8.reshape(cout, cin, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4)
+    return w8.reshape(cout, 4 * cin, 4, 4)

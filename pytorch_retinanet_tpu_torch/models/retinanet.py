@@ -14,14 +14,15 @@ Counterpart of ``pytorch_retinanet_tpu/models/retinanet.py``:
   device into the orientation buckets (uint8 images bit for bit as
   ``cv2.resize`` does, and kept uint8), and returns detections as numpy
   (``predict``) or the training losses (``forward``, through the module's
-  own stem, as the JAX trainer does).
+  own stem, as the JAX trainer does). Its weights are the reference
+  detector's ``state_dict`` schema, so the JAX package's torch interop
+  (``load_torch_backbone``, ``load_torch_state_dict``,
+  ``to_torch_state_dict``, ``save_torch_state_dict``) are thin calls here.
 """
 
 from __future__ import annotations
 
 import math
-import os
-import warnings
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -46,33 +47,47 @@ from .converter import from_jax_variables
 from .fpn import FeaturePyramid
 from .fused_backbone import apply_trunk_fused, fused_trunk_applicable
 from .head import RetinaNetHead
+from .zoo import fetch_backbone_weights
 
 Tensor = torch.Tensor
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# Reference checkpoint keys without learned state for the detector: its
+# anchor constants, and an ImageNet classifier saved with the trunk.
+_IGNORABLE_PREFIXES = ("anchor_generator.", "backbone.backbone.fc.", "fc.")
 
 
 class RetinaNetModule(nn.Module):
-    """Padded [N, H, W, 3] images -> per-level (logits, deltas)."""
+    """Padded [N, H, W, 3] images -> per-level (logits, deltas).
+
+    ``freeze_bn=False`` makes the backbone's batch norms live in training
+    mode (``module.train()``); in eval mode they use the running statistics,
+    as the JAX module does with ``train=False``.
+    """
 
     def __init__(
         self,
         backbone_kind: str = "resnet50",
         num_classes: int = C.NUM_CLASSES,
+        freeze_bn: bool = C.FREEZE_BN,
         prior: float = C.PRIOR,
         channels: int = 256,
         mean: Sequence[float] = tuple(C.MEAN),
         std: Sequence[float] = tuple(C.STD),
         dtype: torch.dtype = torch.bfloat16,
+        remat: bool = False,
+        stem_s2d: bool = False,
     ):
         super().__init__()
         self.backbone_kind = backbone_kind
+        self.stem_s2d = stem_s2d
         self.num_classes = num_classes
         self.prior = prior
         self.mean = tuple(mean)
         self.std = tuple(std)
         self.dtype = dtype
-        self.backbone = BackBone(backbone_kind)
+        self.backbone = BackBone(backbone_kind, freeze_bn=freeze_bn, remat=remat,
+                                 stem_s2d=stem_s2d)
         self.fpn = FeaturePyramid(*backbone_out_channels(backbone_kind), channels=channels)
         self.retinanet_head = RetinaNetHead(num_classes, num_anchors_per_location(), channels)
 
@@ -111,8 +126,10 @@ class RetinaNetModule(nn.Module):
 
 
 def fused_stem_applicable(module: RetinaNetModule, image_shape: Sequence[int]) -> bool:
-    """The fused stem serves the bf16 module on the shapes the kernel takes."""
-    return module.dtype == torch.bfloat16 and stem_supported(image_shape)
+    """The fused stem serves the bf16 module with the 7x7 stem on the shapes
+    the kernel takes."""
+    return (not module.stem_s2d and module.dtype == torch.bfloat16
+            and stem_supported(image_shape))
 
 
 def stem_constants(module: RetinaNetModule, dtype: torch.dtype):
@@ -286,8 +303,9 @@ class Retinanet:
     The constructor takes the JAX ``Retinanet``'s arguments, with defaults
     from :mod:`..config` through ``ifnone``, plus ``device``. Weights start
     from a seeded random init; ``pretrained=True`` loads a torchvision
-    ResNet checkpoint from ``pretrained_path`` when that file exists, and
-    otherwise warns and keeps the random init (nothing is downloaded).
+    ResNet checkpoint found by :func:`.zoo.fetch_backbone_weights`
+    (``pretrained_path``, then the weights directory), and otherwise warns
+    and keeps the random init (nothing is downloaded).
     """
 
     def __init__(
@@ -304,6 +322,8 @@ class Retinanet:
         max_size: Optional[int] = None,
         pretrained_path: Optional[str] = None,
         compute_dtype: Optional[str] = None,
+        remat: bool = False,
+        stem_s2d: bool = False,
         seed: int = 0,
         device: Optional[str | torch.device] = None,
         **unused,
@@ -327,29 +347,20 @@ class Retinanet:
         self.module = RetinaNetModule(
             backbone_kind=self.backbone_kind,
             num_classes=self.num_classes,
+            freeze_bn=self.freeze_bn,
             prior=self.prior,
             dtype=_DTYPES[ifnone(compute_dtype, C.COMPUTE_DTYPE)],
+            remat=remat,
+            stem_s2d=stem_s2d,
         )
         self.module.reset_parameters(torch.Generator().manual_seed(seed))
         if self.pretrained:
-            self._load_pretrained(pretrained_path)
+            resolved = fetch_backbone_weights(self.backbone_kind, pretrained_path)
+            if resolved:
+                self.load_torch_backbone(resolved)
         self.module.to(self.device, memory_format=torch.channels_last).eval()
         self._anchors: Dict[Tuple[int, int], List[Tensor]] = {}
         self._flat_anchors: Dict[Tuple[int, int], Tensor] = {}
-
-    def _load_pretrained(self, path: Optional[str]) -> None:
-        if not path or not os.path.exists(path):
-            warnings.warn(
-                f"no local {self.backbone_kind} checkpoint at {path!r}; using random init. "
-                "Pass pretrained_path= a torchvision ResNet .pth to load one.",
-                stacklevel=3,
-            )
-            return
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-        if isinstance(sd, dict) and "state_dict" in sd:
-            sd = sd["state_dict"]
-        sd = {k: v for k, v in sd.items() if not k.startswith("fc.")}
-        self.module.backbone.backbone.load_state_dict(sd, strict=True)
 
     # ------------------------------------------------------------------ #
     def _anchors_for(self, bucket: Tuple[int, int]) -> List[Tensor]:
@@ -442,14 +453,11 @@ class Retinanet:
             ``{"boxes" [n, 4], "labels" [n]}``, resized and padded here on
             the device.
 
-        Frozen batch norm only: ``freeze_bn=False`` (live batch statistics)
-        is ROADMAP A7 and raises.
+        The module runs in its current mode: eval after construction, so a
+        ``freeze_bn=False`` detector uses its running statistics here, as the
+        JAX ``forward`` does; the ``Trainer`` switches it to training mode
+        for its steps.
         """
-        if not self.freeze_bn:
-            raise NotImplementedError(
-                "training with freeze_bn=False (live batch statistics) is ROADMAP A7; "
-                "build the detector with freeze_bn=True"
-            )
         if isinstance(images, (list, tuple)):
             images, targets = self._pad_ragged(images, targets)
         dev = self.device
@@ -495,6 +503,55 @@ class Retinanet:
             "labels": torch.from_numpy(np.stack(labels)).to(self.device),
             "valid": torch.from_numpy(np.stack(valid)).to(self.device),
         }
+
+    # ------------------------------------------------------------------ #
+    def apply(self, variables: Optional[Mapping[str, Tensor]], images: Tensor,
+              train: bool = False) -> Tuple[Tensor, Tensor]:
+        """The module on padded images -> (cls_logits [N, A, K], box_deltas
+        [N, A, 4]), with `variables` (a ``state_dict``, None for the
+        detector's own weights) and in training mode when `train`."""
+        was = self.module.training
+        self.module.train(train)
+        try:
+            if variables is None:
+                return self.module(images)
+            return torch.func.functional_call(self.module, dict(variables), (images,))
+        finally:
+            self.module.train(was)
+
+    def load_torch_backbone(self, path: str) -> None:
+        """Load a torchvision ImageNet ResNet ``.pth`` into the backbone
+        (its ``fc.*`` classifier is dropped)."""
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        if isinstance(sd, dict) and "state_dict" in sd:
+            sd = sd["state_dict"]
+        sd = {k: v for k, v in sd.items() if not k.startswith("fc.")}
+        self.module.backbone.backbone.load_state_dict(sd, strict=True)
+
+    def load_torch_state_dict(self, state_dict_or_path: Any) -> None:
+        """Load a whole reference-schema detector checkpoint (a path to a
+        ``.pth`` or a ``state_dict``); the reference's ``anchor_generator.*``
+        constants and an ImageNet ``fc.*`` are ignored, and missing
+        ``num_batches_tracked`` counters keep their values."""
+        sd = state_dict_or_path
+        if isinstance(sd, (str, bytes)) or hasattr(sd, "__fspath__"):
+            sd = torch.load(sd, map_location="cpu", weights_only=True)
+            if isinstance(sd, dict) and "state_dict" in sd:
+                sd = sd["state_dict"]
+        sd = {k: v for k, v in sd.items() if not k.startswith(_IGNORABLE_PREFIXES)}
+        for k, v in self.module.state_dict().items():
+            if k.endswith("num_batches_tracked"):
+                sd.setdefault(k, v)
+        self.load_state_dict(sd)
+
+    def to_torch_state_dict(self) -> Dict[str, Tensor]:
+        """The weights in the reference detector's ``state_dict`` schema, as
+        CPU tensors, which the reference ``Retinanet`` loads as they are."""
+        return {k: v.detach().cpu().clone() for k, v in self.module.state_dict().items()}
+
+    def save_torch_state_dict(self, path: str) -> None:
+        """``torch.save`` :meth:`to_torch_state_dict` at `path`."""
+        torch.save(self.to_torch_state_dict(), path)
 
     # ------------------------------------------------------------------ #
     def state_dict(self) -> Dict[str, Tensor]:

@@ -2,14 +2,15 @@
 
 Counterpart of ``pytorch_retinanet_tpu/utils/metrics.py``'s
 ``SmoothedValue`` and ``MetricLogger`` (the torchvision-style meters the
-reference keeps in ``utils/coco/detection_utils.py``). Its profiler hook
-waits for a later slice.
+reference keeps in ``utils/coco/detection_utils.py``), the device memory
+telemetry and the profiler hook, on ``torch.cuda`` and ``torch.profiler``.
 """
 
 from __future__ import annotations
 
 import datetime
 import logging
+import os
 import time
 from collections import defaultdict
 from typing import Dict, Iterable, Iterator, List, Optional
@@ -121,3 +122,57 @@ class MetricLogger:
                             str(data_time))
         logger.info("%s done in %s", header,
                     str(datetime.timedelta(seconds=int(time.time() - start))))
+
+
+def device_memory_stats() -> Dict[str, float]:
+    """Memory allocated on each CUDA device and its peak, in MiB, under
+    ``cuda{i}_mb`` and ``cuda{i}_peak_mb``; {} without CUDA."""
+    import torch
+
+    out: Dict[str, float] = {}
+    if not torch.cuda.is_available():
+        return out
+    for i in range(torch.cuda.device_count()):
+        out[f"cuda{i}_mb"] = round(torch.cuda.memory_allocated(i) / 2**20, 1)
+        out[f"cuda{i}_peak_mb"] = round(torch.cuda.max_memory_allocated(i) / 2**20, 1)
+    return out
+
+
+class ProfilerHook:
+    """A ``torch.profiler`` trace over a step range, written under
+    ``log_dir`` as a Chrome trace: it starts after step ``start_step`` and
+    stops at ``start_step + num_steps``, or at :meth:`close`. Without a
+    ``log_dir`` it does nothing."""
+
+    def __init__(self, log_dir: Optional[str], start_step: int = 10, num_steps: int = 5):
+        self.log_dir = log_dir
+        self.start_step = start_step
+        self.stop_step = start_step + num_steps
+        self.trace_path: Optional[str] = None
+        self._prof = None
+
+    def step(self, step: int) -> None:
+        if not self.log_dir:
+            return
+        if step == self.start_step and self._prof is None:
+            import torch
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=activities)
+            self._prof.start()
+        elif step >= self.stop_step and self._prof is not None:
+            self.close()
+
+    def close(self) -> None:
+        if self._prof is None:
+            return
+        prof, self._prof = self._prof, None
+        prof.stop()
+        os.makedirs(self.log_dir, exist_ok=True)
+        self.trace_path = os.path.join(
+            self.log_dir, f"trace_steps_{self.start_step + 1}-{self.stop_step}.json")
+        prof.export_chrome_trace(self.trace_path)
+        logger.info("profiler trace written to %s", self.trace_path)

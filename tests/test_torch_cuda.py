@@ -510,3 +510,82 @@ def test_top2_kernel_constant_rows_and_extremes(dev):
     for logits in (x, x.to(torch.bfloat16)):
         for g, w in zip(top2_classes(logits), top2_classes_plain(logits)):
             assert torch.equal(g, w)
+
+
+# ---------------------------------------------------------------------------- #
+# The engine on the card: checkpoints across devices, telemetry, the profiler
+# ---------------------------------------------------------------------------- #
+ENGINE_MODEL = dict(num_classes=4, backbone_kind="resnet18", pretrained=False, min_size=64,
+                    max_size=96, compute_dtype="float32", prior=0.1)
+
+
+def _engine_model(device, freeze_bn=True):
+    from pytorch_retinanet_tpu_torch import ConfigDict, RetinaNetModel
+
+    class Served(RetinaNetModel):
+        def prepare_data(self):
+            pass
+
+        def train_dataloader(self, shard=0, num_shards=1):
+            rng = np.random.default_rng(0)
+            boxes = np.zeros((2, 100, 4), np.float32)
+            boxes[:, 0] = [8, 8, 40, 30]
+            labels = np.zeros((2, 100), np.int32)
+            labels[:, 0] = 1
+            return [{"images": rng.random((2, 64, 96, 3), dtype=np.float32), "boxes": boxes,
+                     "labels": labels, "valid": labels > 0}] * 2
+
+        def val_dataloader(self, shard=0, num_shards=1):
+            return None
+
+    hp = {"model": {**ENGINE_MODEL, "freeze_bn": freeze_bn},
+          "optimizer": {"class_name": "SGD", "params": {"lr": 0.01, "momentum": 0.9}}}
+    return Served(ConfigDict(hp), device=device)
+
+
+@pytest.mark.parametrize("src,dst", [("cuda", "cpu"), ("cpu", "cuda")])
+def test_checkpoint_restores_across_devices(dev, tmp_path, src, dst):
+    from pytorch_retinanet_tpu_torch import Trainer
+
+    model = _engine_model(src, freeze_bn=False)
+    trainer = Trainer(max_epochs=1, warmup_steps=0, checkpoint_dir=str(tmp_path))
+    trainer.fit(model)
+    other = _engine_model(dst, freeze_bn=False)
+    resumed = Trainer(max_epochs=1, warmup_steps=0)
+    resumed._model = other
+    resumed._optimizer, resumed._scheduler, _ = other.configure_optimizers()
+    resumed.restore_checkpoint(str(tmp_path / "last"))
+    for k, v in model.net.module.state_dict().items():
+        got = other.net.module.state_dict()[k]
+        assert got.device.type == dst and torch.equal(got.cpu(), v.cpu()), k
+    want = trainer._optimizer.state_dict()["state"]
+    got = resumed._optimizer.state_dict()["state"]
+    for i, s in want.items():
+        assert got[i]["momentum_buffer"].device.type == dst
+        assert torch.equal(got[i]["momentum_buffer"].cpu(), s["momentum_buffer"].cpu()), i
+    assert (resumed.current_epoch, resumed.global_step) == (1, 2)
+
+
+def test_device_memory_stats_keys(dev):
+    from pytorch_retinanet_tpu_torch.utils import device_memory_stats
+
+    x = torch.ones(1 << 20, device=dev)
+    stats = device_memory_stats()
+    n = torch.cuda.device_count()
+    assert set(stats) == {f"cuda{i}_{k}" for i in range(n) for k in ("mb", "peak_mb")}
+    assert stats["cuda0_mb"] >= 4.0 and stats["cuda0_peak_mb"] >= stats["cuda0_mb"]
+    del x
+
+
+def test_profiler_hook_writes_a_trace(dev, tmp_path):
+    import json
+
+    from pytorch_retinanet_tpu_torch import Trainer
+    from pytorch_retinanet_tpu_torch.utils import ProfilerHook
+
+    trainer = Trainer(max_epochs=1, warmup_steps=0, profile_dir=str(tmp_path))
+    trainer.profiler = ProfilerHook(str(tmp_path), start_step=1, num_steps=1)
+    trainer.fit(_engine_model("cuda"))
+    with open(trainer.profiler.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)  # device activity was traced

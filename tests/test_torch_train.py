@@ -221,15 +221,6 @@ def test_training_changes_parameters_not_bn_statistics(port_fit):
             assert not torch.equal(after[k], v), k  # every parameter moved, BN affine too
 
 
-def test_unfrozen_bn_training_is_refused(variables):
-    net = Retinanet(device="cpu", freeze_bn=False, **MODEL)
-    b = BATCHES[0]
-    with pytest.raises(NotImplementedError, match="A7"):
-        net.forward(b["images"], {k: b[k] for k in ("boxes", "labels", "valid")})
-    with pytest.raises(NotImplementedError, match="A7"):
-        Trainer(max_steps=1).fit(_served(variables, freeze_bn=False))
-
-
 def test_pad_targets_matches_jax():
     from pytorch_retinanet_tpu.data.loader import pad_targets as jax_pad_targets
 
@@ -244,22 +235,18 @@ def test_pad_targets_matches_jax():
 # ---------------------------------------------------------------------------- #
 # The port's Trainer knobs (no JAX counterpart run)
 # ---------------------------------------------------------------------------- #
-@pytest.mark.parametrize("knob", [
-    {"callbacks": [object()]}, {"checkpoint_dir": "ckpt"}, {"resume_from_checkpoint": "x"},
-    {"auto_resume": True}, {"save_on_interrupt": True}, {"profile_dir": "p"},
-    {"mesh": object()}, {"devices": [0]}, {"logger": object()},
-])
+@pytest.mark.parametrize("knob", [{"mesh": object()}, {"devices": [0]}])
 def test_later_knobs_raise_with_their_roadmap_item(knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         Trainer(**knob)
 
 
 def test_trainer_test_predict_and_data_kinds_raise(variables):
     t = Trainer()
     model = _served(variables)
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A8"):
         t.test(model)
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A8"):
         t.predict(model)
     for kind in ("coco", "pascal", "csv"):
         m = RetinaNetModel(ConfigDict({"model": MODEL, "dataset": {"kind": kind}}), device="cpu")
