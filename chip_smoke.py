@@ -771,18 +771,6 @@ def recording(trainer) -> list:
     return seen
 
 
-def checkpoint_state(trainer) -> dict:
-    """The trainer's state as ``save_checkpoint`` writes it, cloned."""
-    opt = trainer._optimizer.state_dict()
-    return {"module": {k: v.clone() for k, v in trainer._model.net.module.state_dict().items()},
-            "optimizer": {"state": {i: {k: v.clone() if torch.is_tensor(v) else v
-                                        for k, v in st.items()}
-                                    for i, st in opt["state"].items()},
-                          "param_groups": opt["param_groups"]},
-            "epoch": trainer.current_epoch, "global_step": trainer.global_step,
-            "sched_lr": trainer._sched_lr, "scheduler_state": trainer._scheduler.state_dict()}
-
-
 def same_state(a, b, path: str = "") -> list:
     """Where two nested checkpoint states differ (tensors bit for bit)."""
     if torch.is_tensor(a) or torch.is_tensor(b):
@@ -936,13 +924,18 @@ def engine_main_path(dev, results, images, work: str) -> None:
     restore = resumed.restore_checkpoint
 
     def restore_and_keep(p):
+        # What the restore left in the trainer, written back out by
+        # save_checkpoint itself (the restored epoch count as it stands).
         restore(p)
-        restored.update(checkpoint_state(resumed), path=p)
+        again = os.path.join(work, "restored")
+        resumed.save_checkpoint(again, completed_epochs=resumed.current_epoch)
+        restored.update(state=torch.load(os.path.join(again, CHECKPOINT_FILE), map_location=dev,
+                                         weights_only=True), path=p)
 
     resumed.restore_checkpoint = restore_and_keep
     resumed.fit(model)
     got = cut + [x for x in rest if x[0] != "eval"]
-    diff = same_state({k: v for k, v in restored.items() if k != "path"}, saved)
+    diff = same_state(restored.get("state"), saved)
     if restored.get("path") != interrupt or diff:
         raise SystemExit(f"resume from {restored.get('path')}: restored state differs from "
                          f"the saved one at {diff[:5]}")

@@ -19,11 +19,13 @@ Checkpoints are one ``torch.save`` file per directory
 written under a temporary name and renamed into place, and readable with
 ``torch.load(..., weights_only=True)``. ``checkpoint_dir`` defaults to None
 here (the JAX Trainer's is ``"checkpoints"``): a fit writes nothing unless
-asked. With ``save_on_interrupt`` (the default) SIGTERM or SIGINT during
-``fit`` saves ``<checkpoint_dir>/interrupt`` at the next step boundary (a
-signal that lands while the loader fetches a batch stops before that
-batch's step) and returns; ``auto_resume`` continues from the newer of
-``interrupt`` and ``last``.
+asked. With ``save_on_interrupt`` (the default) and a ``ModelCheckpoint``
+configured, SIGTERM or SIGINT during ``fit`` saves
+``<checkpoint_dir>/interrupt`` at the next step boundary (a signal that
+lands while the loader fetches a batch stops before that batch's step) and
+returns; without a ``ModelCheckpoint`` no handler is installed and the
+signals keep their default behaviour. ``auto_resume`` continues from the
+newer of ``interrupt`` and ``last``.
 
 Not ported yet: ``mesh`` / ``devices`` (ROADMAP A9) and ``Trainer.test`` /
 ``Trainer.predict`` (ROADMAP A8), which raise ``NotImplementedError``.
@@ -129,7 +131,8 @@ class Trainer:
         self.resume_from_checkpoint = resume_from_checkpoint
         self.auto_resume = auto_resume
         # SIGTERM / SIGINT during fit: save <checkpoint_dir>/interrupt at the
-        # next step boundary and return (a second signal aborts).
+        # next step boundary and return (a second signal aborts); only with
+        # a ModelCheckpoint, which gives the save its directory.
         self.save_on_interrupt = save_on_interrupt
         self._interrupted = False
         self.profiler = ProfilerHook(profile_dir)
@@ -236,9 +239,6 @@ class Trainer:
         self._model.net.module.eval()
         return self._losses(batch, "none")
 
-    # ------------------------------------------------------------------ #
-    # Loops
-    # ------------------------------------------------------------------ #
     # ------------------------------------------------------------------ #
     # Checkpoints
     # ------------------------------------------------------------------ #
@@ -359,10 +359,12 @@ class Trainer:
     def _install_interrupt_handlers(self) -> Dict[Any, Any]:
         """SIGTERM / SIGINT set a flag the loop reads at the next step
         boundary; a second signal raises ``KeyboardInterrupt``. Returns the
-        previous handlers, {} when disabled or off the main thread (where
-        ``signal.signal`` cannot be called)."""
+        previous handlers; {} (nothing installed) when disabled, when no
+        ModelCheckpoint gives the save a directory, or off the main thread
+        (where ``signal.signal`` cannot be called)."""
         self._interrupted = False
-        if not self.save_on_interrupt or threading.current_thread() is not threading.main_thread():
+        if (not self.save_on_interrupt or not self._checkpoint_dirs()
+                or threading.current_thread() is not threading.main_thread()):
             return {}
 
         def on_signal(signum, frame):
@@ -378,12 +380,7 @@ class Trainer:
         """Save ``<checkpoint_dir>/interrupt`` with the interrupted epoch not
         counted as completed: the resume re-runs it, with the schedule's
         counters carrying the partial progress."""
-        dirs = self._checkpoint_dirs()
-        if not dirs:
-            logger.warning("interrupted, but no ModelCheckpoint is configured: nothing saved "
-                           "(pass checkpoint_dir= to Trainer)")
-            return
-        path = os.path.join(dirs[0], "interrupt")
+        path = os.path.join(self._checkpoint_dirs()[0], "interrupt")
         self.save_checkpoint(path, completed_epochs=self.current_epoch)
         logger.warning("interrupt checkpoint saved; resume with "
                        "Trainer(resume_from_checkpoint=%r).fit(model)", path)

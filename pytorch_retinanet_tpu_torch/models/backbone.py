@@ -9,9 +9,8 @@ Bottlenecks put the stride on the 3x3 (ResNet V1.5).
 As in JAX ``models/backbone.py:135-163``: ``freeze_bn=False`` makes every
 batch norm live in training mode; ``remat`` recomputes each residual
 block's activations in backward (``torch.utils.checkpoint``, in training
-only), with the live statistics updated in the first pass alone; and
-``stem_s2d`` runs the stem as a 4x4 stride-1 conv over the space-to-depth
-image, repacked per call from the stored 7x7 weight.
+only), with the live statistics updated in the first pass alone. The
+stem is always the 7x7 conv (see ``RetinaNetModule`` on ``stem_s2d``).
 """
 
 from __future__ import annotations
@@ -21,19 +20,10 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .layers import (
-    BatchNorm2d,
-    conv,
-    conv_layer,
-    max_pool_torch,
-    recomputing,
-    space_to_depth_2x,
-    stem_weight_to_s2d,
-)
+from .layers import BatchNorm2d, conv, conv_layer, max_pool_torch, recomputing
 
 Tensor = torch.Tensor
 
@@ -118,8 +108,7 @@ class Bottleneck(nn.Module):
 class ResNet(nn.Module):
     """ResNet trunk: stem, four stages, returning {"c3", "c4", "c5"}."""
 
-    def __init__(self, kind: str = "resnet50", freeze_bn: bool = True, remat: bool = False,
-                 stem_s2d: bool = False):
+    def __init__(self, kind: str = "resnet50", freeze_bn: bool = True, remat: bool = False):
         super().__init__()
         if kind not in RESNET_SPECS:
             raise ValueError(f"backbone kind must be one of {sorted(RESNET_SPECS)}, got {kind!r}")
@@ -136,20 +125,13 @@ class ResNet(nn.Module):
                 cin = width * block_cls.expansion
             self.add_module(f"layer{stage}", nn.Sequential(*blocks))
         self.remat = remat
-        self.stem_s2d = stem_s2d
         for m in self.modules():
             if isinstance(m, BatchNorm2d):
                 m.frozen = freeze_bn
 
     def stem(self, x: Tensor) -> Tensor:
-        """The unfused stem: conv 7x7 s2 (or its space-to-depth form), BN,
-        ReLU, max pool 3x3 s2."""
-        if self.stem_s2d:
-            w = stem_weight_to_s2d(self.conv1.weight).to(x.dtype)
-            y = F.conv2d(F.pad(space_to_depth_2x(x), (2, 1, 2, 1)), w)
-        else:
-            y = conv(self.conv1, x)
-        return max_pool_torch(self.bn1(y, relu=True), 3, 2)
+        """The unfused stem: conv 7x7 s2, BN, ReLU, max pool 3x3 s2."""
+        return max_pool_torch(self.bn1(conv(self.conv1, x), relu=True), 3, 2)
 
     def _stage(self, layer: nn.Sequential, x: Tensor) -> Tensor:
         if not (self.remat and self.training and torch.is_grad_enabled()):

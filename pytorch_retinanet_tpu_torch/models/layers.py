@@ -124,26 +124,3 @@ def nearest_upsample_to(x: Tensor, target_hw: Sequence[int]) -> Tensor:
     y = y.reshape(n, h * rh, w * rw, c)[:, :th, :tw, :]
     return y.permute(0, 3, 1, 2)
 
-
-def space_to_depth_2x(x: Tensor) -> Tensor:
-    """NCHW [B, C, H, W] -> [B, 4C, H/2, W/2], channel order (dy, dx, c).
-
-    The stem's 7x7 stride-2 conv over 3 channels is exactly a 4x4 stride-1
-    conv over these 12 (:func:`stem_weight_to_s2d`), padded (2, 1) on each
-    spatial axis, as the JAX package's ``stem_s2d`` computes it.
-    """
-    b, c, h, w = x.shape
-    x = x.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4)
-    return x.reshape(b, 4 * c, h // 2, w // 2)
-
-
-def stem_weight_to_s2d(w7: Tensor) -> Tensor:
-    """OIHW [Cout, Cin, 7, 7] stride-2 kernel -> the [Cout, 4 Cin, 4, 4]
-    stride-1 kernel computing the same conv on :func:`space_to_depth_2x`
-    input: zero-padded to 8x8 at the top-left, then 2x2 taps into channels
-    (JAX ``stem_kernel_to_s2d``). Differentiable, so it is repacked per call
-    from the stored 7x7 weight."""
-    cout, cin = w7.shape[:2]
-    w8 = F.pad(w7, (1, 0, 1, 0))
-    w8 = w8.reshape(cout, cin, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4)
-    return w8.reshape(cout, 4 * cin, 4, 4)

@@ -22,6 +22,7 @@ Counterpart of ``pytorch_retinanet_tpu/models/retinanet.py``:
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -63,6 +64,12 @@ class RetinaNetModule(nn.Module):
     ``freeze_bn=False`` makes the backbone's batch norms live in training
     mode (``module.train()``); in eval mode they use the running statistics,
     as the JAX module does with ``train=False``.
+
+    ``stem_s2d`` is accepted so that the JAX package's configs load, and
+    changes nothing: JAX stores and trains the space-to-depth 4x4 kernel,
+    while the port stores the 7x7 one (the converter folds an s2d kernel
+    into it), and both forms compute the same conv, so the 7x7 conv (or the
+    fused stem kernel) serves either way.
     """
 
     def __init__(
@@ -80,14 +87,12 @@ class RetinaNetModule(nn.Module):
     ):
         super().__init__()
         self.backbone_kind = backbone_kind
-        self.stem_s2d = stem_s2d
         self.num_classes = num_classes
         self.prior = prior
         self.mean = tuple(mean)
         self.std = tuple(std)
         self.dtype = dtype
-        self.backbone = BackBone(backbone_kind, freeze_bn=freeze_bn, remat=remat,
-                                 stem_s2d=stem_s2d)
+        self.backbone = BackBone(backbone_kind, freeze_bn=freeze_bn, remat=remat)
         self.fpn = FeaturePyramid(*backbone_out_channels(backbone_kind), channels=channels)
         self.retinanet_head = RetinaNetHead(num_classes, num_anchors_per_location(), channels)
 
@@ -126,10 +131,8 @@ class RetinaNetModule(nn.Module):
 
 
 def fused_stem_applicable(module: RetinaNetModule, image_shape: Sequence[int]) -> bool:
-    """The fused stem serves the bf16 module with the 7x7 stem on the shapes
-    the kernel takes."""
-    return (not module.stem_s2d and module.dtype == torch.bfloat16
-            and stem_supported(image_shape))
+    """The fused stem serves the bf16 module on the shapes the kernel takes."""
+    return module.dtype == torch.bfloat16 and stem_supported(image_shape)
 
 
 def stem_constants(module: RetinaNetModule, dtype: torch.dtype):
@@ -370,10 +373,23 @@ class Retinanet:
             ]
         return self._anchors[bucket]
 
+    @contextlib.contextmanager
+    def _mode(self, train: bool):
+        """The module in training mode when `train`, else in eval mode, and
+        back in the mode it was in afterwards."""
+        was = self.module.training
+        self.module.train(train)
+        try:
+            yield
+        finally:
+            self.module.train(was)
+
     @torch.inference_mode()
     def _predict_impl(self, images: Tensor, image_sizes: Tensor) -> Detections:
-        """Padded [B, H, W, 3] batch and [B, 2] resized sizes -> batched detections."""
-        cls_levels, box_levels = apply_detector(self.module, images, return_levels=True)
+        """Padded [B, H, W, 3] batch and [B, 2] resized sizes -> batched
+        detections, in eval mode (running statistics, as JAX's train=False)."""
+        with self._mode(False):
+            cls_levels, box_levels = apply_detector(self.module, images, return_levels=True)
         return process_detections_multilevel_batch(
             cls_levels,
             box_levels,
@@ -430,8 +446,10 @@ class Retinanet:
     # ------------------------------------------------------------------ #
     def _loss_impl(self, images: Tensor, gt_boxes: Tensor, gt_labels: Tensor,
                    gt_valid: Tensor) -> Dict[str, Tensor]:
-        """Losses of a padded batch through the module's own stem."""
-        cls_logits, box_deltas = self.module(images)
+        """Losses of a padded batch through the module's own stem, in eval
+        mode (running statistics, as JAX's ``_loss_impl`` with train=False)."""
+        with self._mode(False):
+            cls_logits, box_deltas = self.module(images)
         anchors = self._anchors_flat(tuple(images.shape[1:3]))
         return retinanet_loss(cls_logits, box_deltas, anchors, gt_boxes, gt_labels, gt_valid,
                               num_classes=self.num_classes)
@@ -453,10 +471,10 @@ class Retinanet:
             ``{"boxes" [n, 4], "labels" [n]}``, resized and padded here on
             the device.
 
-        The module runs in its current mode: eval after construction, so a
-        ``freeze_bn=False`` detector uses its running statistics here, as the
-        JAX ``forward`` does; the ``Trainer`` switches it to training mode
-        for its steps.
+        The module runs in eval mode whatever mode it was left in, so a
+        ``freeze_bn=False`` detector uses its running statistics here and
+        leaves them alone, as the JAX ``forward`` does; the ``Trainer``'s
+        steps call the module in training mode themselves.
         """
         if isinstance(images, (list, tuple)):
             images, targets = self._pad_ragged(images, targets)
@@ -510,14 +528,10 @@ class Retinanet:
         """The module on padded images -> (cls_logits [N, A, K], box_deltas
         [N, A, 4]), with `variables` (a ``state_dict``, None for the
         detector's own weights) and in training mode when `train`."""
-        was = self.module.training
-        self.module.train(train)
-        try:
+        with self._mode(train):
             if variables is None:
                 return self.module(images)
             return torch.func.functional_call(self.module, dict(variables), (images,))
-        finally:
-            self.module.train(was)
 
     def load_torch_backbone(self, path: str) -> None:
         """Load a torchvision ImageNet ResNet ``.pth`` into the backbone

@@ -25,7 +25,12 @@ a ``RetinaNetModel`` subclass (the data slice is ROADMAP A8), as
 * The interrupt cases of ``tests/test_trainer_interrupt.py``: SIGTERM
   saves ``interrupt`` and ``fit`` returns; the resume re-runs the
   interrupted epoch; a partial accumulation window is flushed first;
-  ``save_on_interrupt=False`` installs nothing.
+  ``save_on_interrupt=False`` installs nothing, and neither does a Trainer
+  with no ``ModelCheckpoint`` (the default), so there Ctrl-C still raises.
+* ``predict`` and the ``forward`` losses of a live-BN detector left in
+  training mode by a direct ``train_step``: exactly a fresh eval-mode
+  detector's on the same weights, with the running buffers untouched and
+  the module's mode restored.
 """
 
 from __future__ import annotations
@@ -179,6 +184,31 @@ def test_live_bn_step_matches_jax_mutable_batch_stats():
         moved += "running_" in k and not torch.equal(v, SD[k])
     assert moved == sum("running_" in k for k in got)  # every running buffer moved
     assert not port.net.module.training  # fit leaves the module in eval mode
+
+
+def test_predict_and_forward_after_a_train_step_run_in_eval_mode():
+    port = _served(batches=BATCHES[:1], freeze_bn=False)
+    t = _trainer(max_steps=1)
+    t.fit(port)
+    t.train_step(BATCHES[1])  # leaves the module in training mode
+    net = port.net
+    assert net.module.training
+    buffers = {k: v.clone() for k, v in net.module.named_buffers()}
+    fresh = Retinanet(device="cpu", **{**MODEL, "freeze_bn": False})
+    fresh.load_state_dict(net.state_dict())
+    b = BATCHES[2]
+    images = [b["images"][i] for i in range(len(b["images"]))]
+    targets = {k: b[k] for k in ("boxes", "labels", "valid")}
+    for got, want in zip(net.predict(images), fresh.predict(images)):
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    with torch.no_grad():
+        got, want = net(b["images"], targets), fresh(b["images"], targets)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert net.module.training  # the caller's mode, restored
+    for k, v in net.module.named_buffers():
+        assert torch.equal(v, buffers[k]), k
 
 
 # ---------------------------------------------------------------------------- #
@@ -532,6 +562,15 @@ def test_save_on_interrupt_disabled_installs_nothing(tmp_path):
     assert signal.getsignal(signal.SIGTERM) is before
     assert not os.path.isdir(os.path.join(str(tmp_path), "interrupt"))
     assert os.path.isfile(os.path.join(str(tmp_path), "last", CHECKPOINT_FILE))
+
+
+def test_default_trainer_installs_no_handler():
+    trainer = Trainer()
+    assert not trainer._checkpoint_dirs()
+    assert trainer._install_interrupt_handlers() == {}
+    before = signal.getsignal(signal.SIGINT)
+    _trainer(max_steps=1).fit(_served(batches=BATCHES[:1]))
+    assert signal.getsignal(signal.SIGINT) is before
 
 
 def test_signal_from_the_loader_stops_before_that_step(tmp_path):

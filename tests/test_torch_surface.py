@@ -4,10 +4,15 @@ resnet18, 4 classes, f32, the 64x96 bucket, as ``test_torch_train.py``.
 Random reference-schema weights (random BN statistics and affine too) go
 into both packages; the same numpy inputs go through both.
 
-* ``stem_s2d``: the port's space-to-depth stem against the JAX s2d
-  backbone (its 4x4 kernel repacked by JAX ``stem_kernel_to_s2d`` from the
-  same 7x7 weight): c3 / c4 / c5 within 1e-4 of each map's largest
-  |value|; against the port's own 7x7 stem within 1e-5 of it.
+* ``stem_s2d``: the port's module built with it (whose stem stays the 7x7
+  conv) against the JAX s2d backbone (its 4x4 kernel repacked by JAX
+  ``stem_kernel_to_s2d`` from the same 7x7 weight): c3 / c4 / c5 within
+  1e-4 of each map's largest |value|; the port's stem with and without it
+  exactly equal, and the fused stem gate the same either way.
+* A ``Retinanet`` runs ``predict`` and the ``forward`` losses in eval mode
+  whatever mode its module was left in: a live-BN detector after a train
+  step predicts and scores exactly as a fresh one in eval mode, and its
+  running statistics do not move.
 * ``remat``: with and without it, the loss and every gradient equal within
   1e-6 of the tensor's largest (the recompute repeats the same ops); with
   live batch norm, the running statistics after one step equal and each
@@ -120,16 +125,15 @@ def test_stem_s2d_equals_the_7x7_stem(state_dict):
     with torch.no_grad():
         s2d = _module(state_dict, stem_s2d=True).eval().backbone.backbone.stem(x)
         ref = _module(state_dict).eval().backbone.backbone.stem(x)
-    torch.testing.assert_close(s2d, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+    assert torch.equal(s2d, ref)
 
 
-def test_fused_stem_gate_refuses_s2d():
+def test_fused_stem_gate_ignores_s2d():
     from pytorch_retinanet_tpu_torch.models import fused_stem_applicable
 
-    m = RetinaNetModule(backbone_kind=KIND, num_classes=4)
-    assert fused_stem_applicable(m, (2, 64, 96, 3))
-    assert not fused_stem_applicable(RetinaNetModule(backbone_kind=KIND, num_classes=4,
-                                                     stem_s2d=True), (2, 64, 96, 3))
+    for stem_s2d in (False, True):
+        m = RetinaNetModule(backbone_kind=KIND, num_classes=4, stem_s2d=stem_s2d)
+        assert fused_stem_applicable(m, (2, 64, 96, 3))
 
 
 # ---------------------------------------------------------------------------- #
