@@ -102,6 +102,31 @@ classes, ``configs/hparams.yaml``'s values, seeded uint8 batches of 16 at
     statistics within ``REMAT_STATS_RTOL``, updated once), with step times
     and peak memory.
 
+Then data and eval from files on disk (phase 12), R50-FPN at full width:
+
+12. a. the versions of cv2 and pandas (the script stops at its start,
+       naming them, where either is missing);
+    b. a seeded COCO-format dataset under ``build/chip_smoke_data/``: 96
+       val and 48 train JPEGs, COCO-like 640x480 and 480x640 with about a
+       fifth 1333x800 and 800x1333, 1-30 solid rectangles each labelled
+       with COCO's 80 ids, a few crowd boxes, one val image without GT;
+    c. the evaluator on its own GT (the non-crowd boxes as detections with
+       score 1): AP stats 0-5 and AR@100 stats 8-11 read 1 where an area
+       range has GT and -1 where it has none; AR@1 and AR@10 printed;
+    d. ``Trainer.test`` (test_bs 32, score threshold 0.001, random
+       weights): AP and the 12 stats, test-loop img/s on the host clock,
+       per batch the time blocked in ``next(loader)`` and predict ms, the
+       evaluator's seconds; stem (on the f32 batch) and NMS launched once a
+       batch; then ``Trainer.predict`` inside a profiler window: one entry
+       per image, boxes inside each original image, the card's idle share;
+    e. ``Trainer.fit`` from ``dataset.kind: coco`` for 4 steps of 16 on the
+       pinned uint8 wire: match launched 5 times a step, the step with the
+       loader in the loop against phase 9's, the upload from pinned memory
+       against the same batch from pageable memory;
+    f. resnet18 at min 96 / max 160 overfits 8 seeded CSV images (300
+       epochs of 2 steps, warmup 100, clip 10), then ``Trainer.test``: AP
+       above 0.5, with its seconds.
+
 The last lines are the ``kernels`` JSON, the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -109,6 +134,7 @@ limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import csv
+import importlib.util
 import json
 import os
 import signal
@@ -569,8 +595,8 @@ def time_train_stages(dev, model, trainer, batch, retinanet_loss_levels) -> None
 
 
 def served_model(RetinaNetModel):
-    """The task model serving ``self.loader`` and ``self.val_loader`` (the
-    data slice is ROADMAP A8)."""
+    """The task model serving ``self.loader`` and ``self.val_loader``
+    (seeded batches, no dataset on disk)."""
 
     class Served(RetinaNetModel):
         loader = val_loader = None
@@ -679,8 +705,9 @@ def train_card_vs_cpu(Model, Trainer, ConfigDict, freeze_bn: bool = True):
             f"tensor's largest, worst {worst} {err[worst]:.2e}; all {len(err)} moved")
 
 
-def training_phases(dev, results) -> None:
-    """Phases 6-9: the match kernel, the training path and their times."""
+def training_phases(dev, results) -> float:
+    """Phases 6-9: the match kernel, the training path and their times.
+    Returns phase 9's median step on an uploaded batch, in ms."""
     from pytorch_retinanet_tpu_torch import KERNELS, ConfigDict, RetinaNetModel, Trainer
     from pytorch_retinanet_tpu_torch.kernels import (
         match_targets, match_targets_plain, reset_launch_counts,
@@ -731,6 +758,7 @@ def training_phases(dev, results) -> None:
     log(f"[e2e] train step R50-FPN batch {TRAIN_BATCH} 800x1344 (forward, loss, backward, SGD): "
         f"median {step * 1e3:.1f} ms over 5 -> {TRAIN_BATCH / step:.1f} img/s; peak memory of "
         f"the fit {train_peak / 2**30:.1f} GiB")
+    return step * 1e3
 
 
 class SigtermLoader:
@@ -1062,6 +1090,368 @@ def live_bn_phases(dev) -> None:
         f"ms against frozen {arms[True, False]['ms']:.1f} ms (median of 3, host clock)")
 
 
+# COCO's 80 category ids, non-contiguous in 1..90.
+COCO_IDS = [i for i in range(1, 91) if i not in (12, 26, 29, 30, 45, 66, 68, 69, 71, 83)]
+# Phase 12's seeded COCO-format dataset: (images, landscape images) per split.
+# Every test bucket ends in a partial batch of 32 (58 = 32 + 26, 38 = 32 + 6);
+# the train split gives 3 full batches of 16 an epoch (32 + 16).
+DATA_SPLITS = {"val": (96, 58), "train": (48, 32)}
+TEST_BATCH = 32
+DATA_TRAIN_STEPS = 4
+# Phase 12f: resnet18 at min 96 / max 160 overfits 8 CSV images, then is tested.
+OVERFIT = {"images": 8, "epochs": 300, "train_bs": 4, "lr": 0.01, "min_ap": 0.5}
+
+
+def write_coco_split(root: str, split: str, rng: np.random.Generator) -> dict:
+    """`split`2017/ of seeded JPEGs (COCO-like 640x480 and 480x640, about a
+    fifth 1333x800 and 800x1333) and annotations/instances_`split`2017.json:
+    1-30 solid rectangles per image labelled with COCO ids, a few crowd
+    boxes, and in val one image without annotations."""
+    import cv2
+
+    n, n_land = DATA_SPLITS[split]
+    img_dir = os.path.join(root, f"{split}2017")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+    images, anns = [], []
+    for i in range(n):
+        h, w = (800, 1333) if rng.random() < 0.2 else (480, 640)
+        if i >= n_land:
+            h, w = w, h
+        noise = rng.integers(0, 256, (h // 16 + 1, w // 16 + 1, 3), dtype=np.uint8)
+        img = cv2.resize(noise, (w, h), interpolation=cv2.INTER_NEAREST)
+        image_id = 1000 * (split == "train") + i + 1
+        n_gt = 0 if (split == "val" and i == n - 1) else int(rng.integers(1, 31))
+        for _ in range(n_gt):
+            bw, bh = (float(v) for v in rng.uniform(8, 0.45 * min(h, w), 2))
+            x, y = float(rng.uniform(0, w - bw)), float(rng.uniform(0, h - bh))
+            cv2.rectangle(img, (int(x), int(y)), (int(x + bw), int(y + bh)),
+                          tuple(int(c) for c in rng.integers(0, 256, 3)), -1)
+            anns.append({"id": len(anns) + 1, "image_id": image_id,
+                         "category_id": int(rng.choice(COCO_IDS)), "bbox": [x, y, bw, bh],
+                         "area": bw * bh, "iscrowd": int(rng.random() < 0.03)})
+        cv2.imwrite(os.path.join(img_dir, f"{image_id:012d}.jpg"), img,
+                    [cv2.IMWRITE_JPEG_QUALITY, 90])
+        images.append({"id": image_id, "file_name": f"{image_id:012d}.jpg", "height": h,
+                       "width": w})
+    coco = {"images": images, "annotations": anns,
+            "categories": [{"id": c, "name": str(c)} for c in COCO_IDS]}
+    with open(os.path.join(root, "annotations", f"instances_{split}2017.json"), "w") as f:
+        json.dump(coco, f)
+    return coco
+
+
+def check_evaluator_on_gt(coco: dict) -> None:
+    """12c: the non-crowd GT fed back as detections with score 1: AP (stats
+    0-5) and AR@100 (8-11) read 1 where an area range has GT, -1 where it
+    has none, as pycocotools gives them."""
+    from pytorch_retinanet_tpu_torch.data import COCOIndex
+    from pytorch_retinanet_tpu_torch.eval import CocoEvaluator
+
+    evaluator = CocoEvaluator(COCOIndex(coco), ["bbox"])
+    preds = {img["id"]: {"boxes": [], "scores": [], "labels": []} for img in coco["images"]}
+    for a in coco["annotations"]:
+        if not a["iscrowd"]:
+            x, y, w, h = a["bbox"]
+            p = preds[a["image_id"]]
+            p["boxes"].append([x, y, x + w, y + h])
+            p["scores"].append(1.0)
+            p["labels"].append(a["category_id"])
+    evaluator.update(preds)
+    evaluator.synchronize_between_processes()
+    evaluator.accumulate()
+    stats = evaluator.summarize(verbose=False)["bbox"]
+    areas = [a["area"] for a in coco["annotations"] if not a["iscrowd"]]
+    ranges = {"small": (0.0, 32.0**2), "medium": (32.0**2, 96.0**2), "large": (96.0**2, 1e10)}
+    has = {k: any(lo <= v <= hi for v in areas) for k, (lo, hi) in ranges.items()}
+    want = [1.0, 1.0, 1.0] + [1.0 if has[k] else -1.0 for k in ranges]
+    checked = {i: w for i, w in enumerate(want)}
+    checked.update({8: 1.0, **{9 + j: w for j, w in enumerate(want[3:])}})
+    bad = {i: (float(stats[i]), w) for i, w in checked.items() if abs(stats[i] - w) > 1e-12}
+    if bad:
+        raise SystemExit(f"evaluator on its own GT: stats (got, want) {bad}")
+    log(f"[eval] {len(areas)} non-crowd GT boxes of {len(coco['images'])} val images fed back "
+        f"as detections: AP stats 0-5 {[float(s) for s in stats[:6]]}, AR@100 stats 8-11 "
+        f"{[float(s) for s in stats[8:]]} as expected (1 where a range has GT: {has}); AR@1 "
+        f"{stats[6]:.4f}, AR@10 {stats[7]:.4f} (not checked)")
+
+
+def device_busy_share(fn) -> tuple:
+    """``fn()`` once inside a ``torch.profiler`` window: (its result, wall
+    seconds, the share of that wall the card spent in kernels and copies,
+    from the union of their intervals)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        raise SystemExit("the profiler recorded no CUDA activity: idle share not measured")
+    busy, end = 0.0, -float("inf")
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return out, wall, busy / 1e6 / wall
+
+
+def timed_loader(loader, blocked: list):
+    """`loader`, with each ``next`` timed into `blocked` (seconds)."""
+
+    class Timed:
+        def __len__(self):
+            return len(loader)
+
+        def __iter__(self):
+            it = iter(loader)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                blocked.append(time.perf_counter() - t0)
+                yield batch
+
+    return Timed()
+
+
+def data_test_phase(hp, coco: dict) -> None:
+    """12d: Trainer.test and Trainer.predict of R50-FPN on the val split."""
+    from pytorch_retinanet_tpu_torch import RetinaNetModel, Trainer
+    from pytorch_retinanet_tpu_torch.kernels import KERNELS, reset_launch_counts, stem_forward
+
+    model = RetinaNetModel(hp)
+    net = model.net
+    blocked, predict_s, eval_s, out = [], [], {}, {}
+    make_loader, predict_impl, make_evaluator = (model.test_dataloader, net._predict_impl,
+                                                 model.test_evaluator)
+
+    def predict(images, sizes):
+        t0 = time.perf_counter()
+        out = predict_impl(images, sizes)
+        torch.cuda.synchronize()
+        predict_s.append(time.perf_counter() - t0)
+        return out
+
+    def evaluator(*args, **kw):
+        e = make_evaluator(*args, **kw)
+        for name in ("accumulate", "summarize"):
+            def timed(*a, _f=getattr(e, name), _name=name, **k):
+                t0 = time.perf_counter()
+                out[_name] = _f(*a, **k)
+                eval_s[_name] = time.perf_counter() - t0
+                return out[_name]
+            setattr(e, name, timed)
+        return e
+
+    model.test_dataloader = lambda *a, **k: timed_loader(make_loader(*a, **k), blocked)
+    net._predict_impl, model.test_evaluator = predict, evaluator
+    trainer = Trainer(logger=False, log_every_n_steps=1000)
+    model.prepare_data()
+    n_batches = len(make_loader())
+    warm = next(iter(make_loader()))  # cuDNN plans and the allocator, outside the count
+    predict_impl(warm["images"].to(net.device), warm["image_sizes"].to(net.device))
+    del warm
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ap = trainer.test(model)[0]["AP"]
+    total_s = time.perf_counter() - t0
+    launches = {k.name: k.wrapper.launches for k in KERNELS}
+    stats = out["summarize"]["bbox"]
+    loop_s = sum(blocked) + sum(predict_s)
+    n_images = len(coco["images"])
+    if launches["fused_stem"] != n_batches or launches["nms_keep_mask"] != n_batches \
+            or stem_forward.last_dtype != torch.float32:
+        raise SystemExit(f"Trainer.test of {n_batches} batches launched {launches}, the stem "
+                         f"last on {stem_forward.last_dtype}; want stem and NMS once a batch, f32")
+    if not 0.0 <= ap <= 1.0:
+        raise SystemExit(f"Trainer.test AP {ap}")
+    log(f"[data] Trainer.test R50-FPN, 90 classes, {n_images} val images in {n_batches} batches "
+        f"of {TEST_BATCH} (both buckets, each ending in a partial batch): AP {ap:.6f}; "
+        f"launches {launches} (stem on the f32 batch); the 12 stats "
+        f"{[round(float(s), 6) for s in stats]}")
+    log(f"[data] test loop {loop_s:.3f} s for {n_images} images -> {n_images / loop_s:.1f} img/s "
+        f"(host clock, loader and predict); per batch blocked in next(loader) "
+        f"{['%.1f' % (s * 1e3) for s in blocked]} ms, predict "
+        f"{['%.1f' % (s * 1e3) for s in predict_s]} ms; evaluator evaluate+accumulate "
+        f"{eval_s['accumulate']:.3f} s, summarize {eval_s['summarize']:.3f} s; whole "
+        f"Trainer.test {total_s:.3f} s")
+
+    # Trainer.predict over the same loader, inside a profiler window.
+    blocked.clear()
+    predict_s.clear()
+    preds, wall, busy = device_busy_share(lambda: trainer.predict(model))
+    ids = {img["id"]: img for img in coco["images"]}
+    if set(preds) != set(ids):
+        raise SystemExit(f"Trainer.predict returned {len(preds)} image ids, want {len(ids)}")
+    for image_id, p in preds.items():
+        h, w = ids[image_id]["height"], ids[image_id]["width"]
+        b = p["boxes"]
+        if len(b) and (b.min() < -1e-3 or b[:, [0, 2]].max() > w + 1e-3
+                       or b[:, [1, 3]].max() > h + 1e-3 or not np.isfinite(b).all()):
+            raise SystemExit(f"Trainer.predict: boxes of image {image_id} outside {w}x{h}")
+    n_det = sum(len(p["scores"]) for p in preds.values())
+    log(f"[data] Trainer.predict: one entry per val image ({len(preds)}), {n_det} detections, "
+        f"boxes inside each original image; under the profiler {wall:.3f} s, the card busy "
+        f"{busy:.3f} of it (idle share {1 - busy:.3f}); blocked in next(loader) "
+        f"{['%.1f' % (s * 1e3) for s in blocked]} ms, predict "
+        f"{['%.1f' % (s * 1e3) for s in predict_s]} ms")
+
+
+def data_fit_phase(dev, hp, step_ms: float) -> None:
+    """12e: Trainer.fit from dataset.kind coco through the loader (uint8 wire)."""
+    from pytorch_retinanet_tpu_torch import RetinaNetModel, Trainer
+    from pytorch_retinanet_tpu_torch.kernels import KERNELS, reset_launch_counts
+
+    model = RetinaNetModel(hp)
+    blocked, ends = [], []
+    make_loader = model.train_dataloader
+    model.train_dataloader = lambda *a, **k: timed_loader(make_loader(*a, **k), blocked)
+    trainer = Trainer(max_epochs=2, max_steps=DATA_TRAIN_STEPS, warmup_steps=500,
+                      log_every_n_steps=1, num_sanity_val_steps=0, check_val_every_n_epoch=100,
+                      logger=False)
+    train_step = trainer.train_step
+
+    def step(batch):
+        out = train_step(batch)
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        return out
+
+    trainer.train_step = step
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.fit(model)
+    fit_s = time.perf_counter() - t0
+    launches = {k.name: k.wrapper.launches for k in KERNELS}
+    losses = trainer.logger_.meters["loss"].window
+    if trainer.global_step != DATA_TRAIN_STEPS or not np.isfinite(losses).all() \
+            or launches["match_targets"] != 5 * DATA_TRAIN_STEPS:
+        raise SystemExit(f"fit from the coco dataset: {trainer.global_step} steps, losses "
+                         f"{losses}, launches {launches}")
+    batch = next(iter(make_loader()))
+    if batch["images"].dtype != torch.uint8 or not batch["images"].is_pinned():
+        raise SystemExit(f"train batch {batch['images'].dtype}, pinned "
+                         f"{batch['images'].is_pinned()}: want the pinned uint8 wire")
+    with_loader = np.diff(ends) * 1e3
+    pageable = {k: v.clone() for k, v in batch.items()}
+
+    def upload(b, non_blocking):
+        return {k: v.to(dev, non_blocking=non_blocking) for k, v in b.items()}
+
+    pinned_ms = time_ms(lambda: upload(batch, True), 5)
+    pageable_ms = time_ms(lambda: upload(pageable, False), 5)
+    mb = sum(v.numel() * v.element_size() for v in batch.values()) / 1e6
+    log(f"[data] Trainer.fit from dataset.kind coco, {DATA_TRAIN_STEPS} steps of "
+        f"{tuple(batch['images'].shape)} uint8 (pinned) in {fit_s:.2f} s: losses "
+        f"{['%.5f' % v for v in losses]}; launches {launches}")
+    log(f"[data] step with the loader in the loop (previous step's end to this one's, host "
+        f"clock) {['%.1f' % v for v in with_loader]} ms, median "
+        f"{float(np.median(with_loader)):.1f} ms, against phase 9's {step_ms:.1f} ms on an "
+        f"uploaded batch; blocked in next(loader) {['%.1f' % (s * 1e3) for s in blocked]} ms")
+    log(f"[data] upload of a {mb:.1f} MB train batch: pinned, non_blocking {pinned_ms:.2f} ms; "
+        f"the same from pageable memory {pageable_ms:.2f} ms (CUDA events, mean of 5)")
+
+
+def write_overfit_csv(root: str, rng: np.random.Generator) -> str:
+    """8 images of 120x160 with 1-2 red or blue rectangles (2 classes) and
+    their CSV in the reference schema."""
+    import cv2
+    import pandas as pd
+
+    os.makedirs(root, exist_ok=True)
+    colors = {"red": (0, 0, 230), "blue": (230, 0, 0)}
+    rows = []
+    for i in range(OVERFIT["images"]):
+        img = np.full((120, 160, 3), 255, np.uint8)
+        path = os.path.join(root, f"{i}.png")
+        for _ in range(int(rng.integers(1, 3))):
+            cls = ["red", "blue"][int(rng.integers(0, 2))]
+            w, h = int(rng.integers(30, 70)), int(rng.integers(30, 70))
+            x, y = int(rng.integers(0, 160 - w)), int(rng.integers(0, 120 - h))
+            cv2.rectangle(img, (x, y), (x + w, y + h), colors[cls], -1)
+            rows.append({"filename": path, "width": 160, "height": 120, "class": cls,
+                         "xmin": float(x), "ymin": float(y), "xmax": float(x + w),
+                         "ymax": float(y + h), "labels": 1 if cls == "red" else 2})
+        cv2.imwrite(path, img)
+    csv_path = os.path.join(root, "train.csv")
+    pd.DataFrame(rows).to_csv(csv_path, index=False)
+    return csv_path
+
+
+def overfit_phase(root: str) -> None:
+    """12f: resnet18 at min 96 / max 160 overfits 8 CSV images, then
+    Trainer.test scores them: AP above OVERFIT["min_ap"]."""
+    from pytorch_retinanet_tpu_torch import ConfigDict, RetinaNetModel, Trainer
+
+    csv_path = write_overfit_csv(root, np.random.default_rng(12))
+    hp = ConfigDict({
+        "model": {"backbone_kind": "resnet18", "num_classes": 2, "min_size": 96,
+                  "max_size": 160, "pretrained": False},
+        "dataset": {"kind": "csv", "trn_paths": csv_path, "valid_paths": False,
+                    "test_paths": csv_path},
+        "dataloader": {"train_bs": OVERFIT["train_bs"], "valid_bs": 8, "test_bs": 8,
+                       "args": {"num_workers": 4}},
+        "transforms": [],
+        "optimizer": {"class_name": "torch.optim.SGD",
+                      "params": {"lr": OVERFIT["lr"], "momentum": 0.9, "weight_decay": 1e-4}},
+    })
+    model = RetinaNetModel(hp)
+    trainer = Trainer(max_epochs=OVERFIT["epochs"], warmup_steps=100, gradient_clip_val=10.0,
+                      log_every_n_steps=100, num_sanity_val_steps=0, logger=False)
+    t0 = time.perf_counter()
+    trainer.fit(model)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    ap = trainer.test(model)[0]["AP"]
+    total_s = time.perf_counter() - t0
+    log(f"[overfit] resnet18 min 96 / max 160, {OVERFIT['images']} CSV images, "
+        f"{trainer.global_step} steps of {OVERFIT['train_bs']} (warmup 100, clip 10): fit "
+        f"{fit_s:.1f} s, with Trainer.test {total_s:.1f} s; last loss "
+        f"{trainer.logger_.meters['loss'].value:.4f}; AP {ap:.4f} (must exceed "
+        f"{OVERFIT['min_ap']})")
+    if not ap > OVERFIT["min_ap"]:
+        raise SystemExit(f"the overfit reached AP {ap}, not above {OVERFIT['min_ap']}")
+
+
+def data_eval_phases(dev, step_ms: float) -> None:
+    """Phase 12: data and eval, from files on disk, at full width."""
+    import shutil
+
+    import cv2
+    import pandas as pd
+
+    from pytorch_retinanet_tpu_torch import ConfigDict
+
+    log(f"[data] cv2 {cv2.__version__}, pandas {pd.__version__}")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_data")
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(20)
+    t0 = time.perf_counter()
+    coco = {split: write_coco_split(root, split, rng) for split in ("val", "train")}
+    log(f"[data] wrote {sum(len(c['images']) for c in coco.values())} JPEGs and their COCO "
+        f"annotations ({sum(len(c['annotations']) for c in coco.values())} boxes) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    check_evaluator_on_gt(coco["val"])
+    hp = ConfigDict(HPARAMS).merge({
+        "model": {"score_thres": 0.001},
+        "dataset": {"kind": "coco", "root_dir": root},
+        "dataloader": {"test_bs": TEST_BATCH, "args": {"num_workers": 8}},
+        "transforms": [{"class_name": "albumentations.HorizontalFlip", "params": {"p": 0.5}}],
+    })
+    data_test_phase(hp, coco["val"])
+    torch.cuda.empty_cache()
+    data_fit_phase(dev, hp, step_ms)
+    torch.cuda.empty_cache()
+    overfit_phase(os.path.join(root, "overfit"))
+
+
 def bottleneck_case(dev, b: int, h: int, w: int, mid: int, seed: int) -> list:
     """Seeded block inputs on the card: x [b, h, w, 4 mid] bf16, GEMM-layout
     bf16 weights, folded BN with b1 in [0.5, 1]."""
@@ -1379,6 +1769,12 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script runs on the card only",
               file=sys.stderr)
         return 2
+    # The data slice decodes and resizes with cv2 and reads CSVs with pandas.
+    missing = [name for name in ("cv2", "pandas") if importlib.util.find_spec(name) is None]
+    if missing:
+        print(f"chip_smoke: missing Python package(s) {missing}: the port's data layer needs "
+              "cv2 and pandas", file=sys.stderr)
+        return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from pytorch_retinanet_tpu_torch import KERNELS
     from pytorch_retinanet_tpu_torch.config import MEAN, STD
@@ -1594,12 +1990,14 @@ def main() -> int:
     del net, batch
     torch.cuda.empty_cache()
 
-    training_phases(dev, results)
+    step_ms = training_phases(dev, results)
     torch.cuda.empty_cache()
 
     work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_engine")
     engine_main_path(dev, results, images, work)
     live_bn_phases(dev)
+    torch.cuda.empty_cache()
+    data_eval_phases(dev, step_ms)
 
     log(json.dumps({"kernels": [results[k.name] for k in KERNELS]}))
     print(smi)

@@ -27,8 +27,16 @@ returns; without a ``ModelCheckpoint`` no handler is installed and the
 signals keep their default behaviour. ``auto_resume`` continues from the
 newer of ``interrupt`` and ``last``.
 
-Not ported yet: ``mesh`` / ``devices`` (ROADMAP A9) and ``Trainer.test`` /
-``Trainer.predict`` (ROADMAP A8), which raise ``NotImplementedError``.
+``test`` predicts every test batch (``limit_test_batches`` of them) and
+scores the detections with the model's COCO evaluator, returning
+``[{"AP": stats[0]}]``; ``predict`` returns ``{image_id: {"boxes",
+"scores", "labels"}}`` with boxes in each image's original coordinates.
+Both run ``Retinanet._predict_impl`` on the uploaded batch (the fused stem
+and the NMS kernel on CUDA) and drop the ``batch_mask`` padding rows.
+Batches in pinned memory upload with ``non_blocking=True``.
+
+Not ported yet: ``mesh`` / ``devices`` (ROADMAP A9), which raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ import numpy as np
 import torch
 
 from ..ops import retinanet_loss_levels
+from ..ops.boxes import rescale_boxes
 from ..utils.metrics import MetricLogger, ProfilerHook, device_memory_stats
 from .callbacks import Callback, ModelCheckpoint
 from .model import RetinaNetModel
@@ -94,6 +103,7 @@ class Trainer:
         logger: Any = True,
         limit_train_batches: Any = 1.0,
         limit_val_batches: Any = 1.0,
+        limit_test_batches: Any = 1.0,
         fast_dev_run: Any = False,
         check_val_every_n_epoch: Optional[int] = None,
         overfit_batches: Any = 0.0,
@@ -112,11 +122,11 @@ class Trainer:
             if value:
                 raise NotImplementedError(
                     f"Trainer({name}=...) is ROADMAP A9 (distributed): not ported yet")
-        # fast_dev_run=n: one epoch of n train and n val batches, no sanity
-        # check, no checkpointing and no experiment logger (Lightning 1.0).
+        # fast_dev_run=n: one epoch of n train, n val and n test batches, no
+        # sanity check, no checkpointing and no experiment logger (Lightning 1.0).
         if fast_dev_run:
             max_epochs, max_steps = 1, None
-            limit_train_batches = limit_val_batches = int(fast_dev_run)
+            limit_train_batches = limit_val_batches = limit_test_batches = int(fast_dev_run)
             num_sanity_val_steps = 0
             checkpoint_dir = resume_from_checkpoint = None
             auto_resume = False
@@ -138,6 +148,7 @@ class Trainer:
         self.profiler = ProfilerHook(profile_dir)
         self.limit_train_batches = limit_train_batches
         self.limit_val_batches = limit_val_batches
+        self.limit_test_batches = limit_test_batches
         # overfit_batches=n: train on a fixed, unshuffled slice of n train
         # batches and validate on the same slice.
         self.overfit_batches = overfit_batches
@@ -198,12 +209,19 @@ class Trainer:
     # ------------------------------------------------------------------ #
     # Steps
     # ------------------------------------------------------------------ #
-    def _device_batch(self, batch: Dict[str, Any]) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    def _upload(self, batch: Dict[str, Any], *keys: str) -> Tuple[Tensor, ...]:
+        """The batch's `keys` on the model's device; a pinned tensor uploads
+        with ``non_blocking=True``."""
         dev = self._model.net.device
-        return tuple(
-            (v if isinstance(v, Tensor) else torch.as_tensor(np.asarray(v))).to(dev)
-            for v in (batch["images"], batch["boxes"], batch["labels"], batch["valid"])
-        )
+        out = []
+        for k in keys:
+            v = batch[k]
+            v = v if isinstance(v, Tensor) else torch.as_tensor(np.asarray(v))
+            out.append(v.to(dev, non_blocking=v.is_pinned()))
+        return tuple(out)
+
+    def _device_batch(self, batch: Dict[str, Any]) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+        return self._upload(batch, "images", "boxes", "labels", "valid")
 
     def _losses(self, batch: Dict[str, Any], reduction: str) -> Dict[str, Tensor]:
         net = self._model.net
@@ -538,10 +556,59 @@ class Trainer:
         self._model = model
         return self._run_validation(model)
 
-    def test(self, model: RetinaNetModel):
-        raise NotImplementedError("Trainer.test (COCO evaluation) is ROADMAP A8 (data and eval): "
-                                  "not ported yet")
+    def _ensure_data(self, model: RetinaNetModel) -> None:
+        """Bind `model` and build its datasets unless it has some already."""
+        self._model = model
+        if getattr(model, "trn_ds", None) is None and getattr(model, "test_ds", None) is None:
+            model.prepare_data()
 
-    def predict(self, model: RetinaNetModel, loader=None):
-        raise NotImplementedError("Trainer.predict is ROADMAP A8 (data and eval, its "
-                                  "DetectionLoader): not ported yet; use Retinanet.predict")
+    @torch.inference_mode()
+    def _predict_batch(self, batch: Dict[str, Any]) -> Dict[int, Dict[str, np.ndarray]]:
+        """Detections of one loader batch, boxes rescaled to each image's
+        original size, keyed by image id; padding rows are dropped."""
+        net = self._model.net
+        images, sizes, orig = self._upload(batch, "images", "image_sizes", "orig_sizes")
+        det = net._predict_impl(images, sizes)
+        boxes = rescale_boxes(det.boxes, sizes[:, None, :], orig[:, None, :])
+        boxes, scores, labels, valid = (t.cpu().numpy() for t in (boxes, *det[1:]))
+        ids = np.asarray(torch.as_tensor(batch["image_ids"]))
+        mask = batch.get("batch_mask")
+        mask = np.ones(len(ids), bool) if mask is None else np.asarray(torch.as_tensor(mask))
+        out = {}
+        for i, image_id in enumerate(ids):
+            if not mask[i]:
+                continue
+            n = int(valid[i].sum())
+            out[int(image_id)] = {"boxes": boxes[i, :n], "scores": scores[i, :n],
+                                  "labels": labels[i, :n]}
+        return out
+
+    def test(self, model: RetinaNetModel) -> List[Dict[str, float]]:
+        """COCO evaluation of the test set (reference test_step /
+        test_epoch_end, model.py:132-146): ``[{"AP": stats[0]}]``."""
+        self._ensure_data(model)
+        evaluator = model.test_evaluator()
+        loader = model.test_dataloader()
+        limit = self._resolve_limit(self.limit_test_batches, len(loader))
+        for bi, batch in enumerate(self.logger_.log_every(loader, header="test")):
+            if bi >= limit:
+                break
+            evaluator.update(self._predict_batch(batch))
+        evaluator.synchronize_between_processes()
+        evaluator.accumulate()
+        stats = evaluator.summarize()
+        results = {"AP": float(stats["bbox"][0])}
+        logger.info("test results: %s", results)
+        return [results]
+
+    def predict(self, model: RetinaNetModel, loader=None) -> Dict[int, Dict[str, np.ndarray]]:
+        """Detections over `loader` (the test loader by default):
+        ``{image_id: {"boxes", "scores", "labels"}}``, boxes in each image's
+        original coordinates."""
+        self._ensure_data(model)
+        if loader is None:
+            loader = model.test_dataloader()
+        out: Dict[int, Dict[str, np.ndarray]] = {}
+        for batch in loader:
+            out.update(self._predict_batch(batch))
+        return out

@@ -9,8 +9,13 @@ Bottlenecks put the stride on the 3x3 (ResNet V1.5).
 As in JAX ``models/backbone.py:135-163``: ``freeze_bn=False`` makes every
 batch norm live in training mode; ``remat`` recomputes each residual
 block's activations in backward (``torch.utils.checkpoint``, in training
-only), with the live statistics updated in the first pass alone. The
-stem is always the 7x7 conv (see ``RetinaNetModule`` on ``stem_s2d``).
+only), with the live statistics updated in the first pass alone.
+``stem_s2d=True`` stores and trains the space-to-depth stem as JAX does
+(``models/backbone.py:163-176``): ``conv1.weight`` is [64, 12, 4, 4], a
+stride-1 conv with padding (2, 1) over :func:`.layers.space_to_depth_2x`
+input, initialized as a repacked 7x7 weight. Loading converts a 7x7
+``conv1.weight`` into the module's form and back (see
+:meth:`ResNet._load_from_state_dict`).
 """
 
 from __future__ import annotations
@@ -20,10 +25,20 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .layers import BatchNorm2d, conv, conv_layer, max_pool_torch, recomputing
+from .layers import (
+    BatchNorm2d,
+    conv,
+    conv_layer,
+    max_pool_torch,
+    recomputing,
+    space_to_depth_2x,
+    stem_weight_from_s2d,
+    stem_weight_to_s2d,
+)
 
 Tensor = torch.Tensor
 
@@ -108,13 +123,15 @@ class Bottleneck(nn.Module):
 class ResNet(nn.Module):
     """ResNet trunk: stem, four stages, returning {"c3", "c4", "c5"}."""
 
-    def __init__(self, kind: str = "resnet50", freeze_bn: bool = True, remat: bool = False):
+    def __init__(self, kind: str = "resnet50", freeze_bn: bool = True, remat: bool = False,
+                 stem_s2d: bool = False):
         super().__init__()
         if kind not in RESNET_SPECS:
             raise ValueError(f"backbone kind must be one of {sorted(RESNET_SPECS)}, got {kind!r}")
         block_kind, depths = RESNET_SPECS[kind]
         block_cls = BasicBlock if block_kind == "basic" else Bottleneck
-        self.conv1 = conv_layer(3, 64, 7, 2)
+        self.stem_s2d = stem_s2d
+        self.conv1 = nn.Conv2d(12, 64, 4, bias=False) if stem_s2d else conv_layer(3, 64, 7, 2)
         self.bn1 = BatchNorm2d(64)
         cin = 64
         for stage, (depth, width) in enumerate(zip(depths, (64, 128, 256, 512)), start=1):
@@ -130,8 +147,22 @@ class ResNet(nn.Module):
                 m.frozen = freeze_bn
 
     def stem(self, x: Tensor) -> Tensor:
-        """The unfused stem: conv 7x7 s2, BN, ReLU, max pool 3x3 s2."""
+        """The unfused stem: conv 7x7 s2 (or its space-to-depth form), BN,
+        ReLU, max pool 3x3 s2."""
+        if self.stem_s2d:
+            x = F.pad(space_to_depth_2x(x), (2, 1, 2, 1))
         return max_pool_torch(self.bn1(conv(self.conv1, x), relu=True), 3, 2)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        """A 7x7 ``conv1.weight`` (the reference schema) loads into the s2d
+        stem repacked, and an s2d one into the 7x7 stem folded (which
+        raises on learned taps outside the 7x7 field)."""
+        key = prefix + "conv1.weight"
+        w = state_dict.get(key)
+        if w is not None and tuple(w.shape[2:]) != tuple(self.conv1.weight.shape[2:]):
+            w = torch.as_tensor(w)
+            state_dict[key] = stem_weight_to_s2d(w) if self.stem_s2d else stem_weight_from_s2d(w)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def _stage(self, layer: nn.Sequential, x: Tensor) -> Tensor:
         if not (self.remat and self.training and torch.is_grad_enabled()):
@@ -153,9 +184,15 @@ class ResNet(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Kaiming-normal (fan_out, ReLU) convs, identity BN, as torchvision."""
+        """Kaiming-normal (fan_out, ReLU) convs, identity BN, as torchvision.
+        The s2d stem samples the 7x7 weight and repacks it, as JAX's
+        ``_s2d_stem_init`` does, from the same draws as the 7x7 stem's."""
         for m in self.modules():
-            if isinstance(m, nn.Conv2d):
+            if m is self.conv1 and self.stem_s2d:
+                w7 = torch.empty((64, 3, 7, 7)).normal_(0.0, math.sqrt(2.0 / (64 * 49)),
+                                                        generator=generator)
+                m.weight.copy_(stem_weight_to_s2d(w7))
+            elif isinstance(m, nn.Conv2d):
                 fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
                 m.weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
 

@@ -7,6 +7,8 @@ conversion is the JAX package's export
 HWIO kernels become OIHW, flax BN ``scale/bias`` + ``mean/var`` become
 torchvision's ``weight/bias`` + ``running_mean/running_var``. This module is
 its own copy of that mapping and takes plain nested dicts of numpy arrays.
+A ``stem_s2d`` stem kernel is carried across unchanged (the port's s2d
+``conv1``); a ``ResNet`` of the other stem form converts it on load.
 """
 
 from __future__ import annotations
@@ -34,22 +36,6 @@ _HEADS = (
 )
 
 
-def _s2d_kernel_to_7x7(k4: np.ndarray, atol: float = 1e-6) -> np.ndarray:
-    """[4, 4, 4*Cin, Cout] space-to-depth stem kernel -> [7, 7, Cin, Cout]."""
-    k4 = np.asarray(k4)
-    kh, kw, cin4, cout = k4.shape
-    if (kh, kw) != (4, 4) or cin4 % 4:
-        raise ValueError(f"not a space-to-depth stem kernel: {k4.shape}")
-    cin = cin4 // 4
-    k8 = k4.reshape(4, 4, 2, 2, cin, cout).transpose(0, 2, 1, 3, 4, 5).reshape(8, 8, cin, cout)
-    extra = max(np.abs(k8[0, :]).max(), np.abs(k8[:, 0]).max())
-    if extra > atol:
-        raise ValueError(
-            f"space-to-depth stem kernel has taps outside the 7x7 field (max {extra:.3g})"
-        )
-    return k8[1:, 1:]
-
-
 def resnet_state_dict(
     params: Mapping[str, Any], stats: Mapping[str, Any], kind: str
 ) -> Dict[str, np.ndarray]:
@@ -69,10 +55,9 @@ def resnet_state_dict(
         out[f"{prefix}.running_var"] = np.asarray(bns["var"], np.float32)
         out[f"{prefix}.num_batches_tracked"] = np.asarray(0, np.int64)
 
-    stem = np.asarray(params["stem_conv"]["kernel"], np.float32)
-    if tuple(stem.shape[:2]) == (4, 4):
-        stem = _s2d_kernel_to_7x7(stem)
-    out["conv1.weight"] = stem.transpose(3, 2, 0, 1)
+    # A space-to-depth stem kernel [4, 4, 12, 64] comes across as it is, to
+    # the port's s2d conv1 [64, 12, 4, 4].
+    put_conv("conv1.weight", params["stem_conv"])
     put_bn("bn1", params["stem_bn"], stats["stem_bn"])
     for stage, depth in enumerate(depths, start=1):
         for i in range(depth):

@@ -104,6 +104,48 @@ class BatchNorm2d(nn.Module):
         return torch.relu_(y) if relu else y
 
 
+def space_to_depth_2x(x: Tensor) -> Tensor:
+    """NCHW [B, C, H, W] -> [B, 4C, H/2, W/2], channel order (dy, dx, c), as
+    the JAX ``space_to_depth_2x`` packs its NHWC channels."""
+    b, c, h, w = x.shape
+    x = x.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(b, 4 * c, h // 2, w // 2)
+
+
+def stem_weight_to_s2d(w7: Tensor) -> Tensor:
+    """[Cout, Cin, 7, 7] stride-2 stem weight -> the [Cout, 4 Cin, 4, 4]
+    stride-1 weight that computes the same conv on :func:`space_to_depth_2x`
+    input padded (2, 1): the OIHW form of JAX's ``stem_kernel_to_s2d``.
+
+    With torch padding 3, ``out[i] = sum_k w[k] x[2i + k - 3]``; writing
+    ``k + 1 = 2a + d`` turns it into 4 taps ``a`` over the packed input,
+    with one zero tap (the 8x8 field's first row and column).
+    """
+    cout, cin = w7.shape[:2]
+    w8 = w7.new_zeros((cout, cin, 8, 8))
+    w8[:, :, 1:, 1:] = w7
+    w4 = w8.reshape(cout, cin, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4)  # o, dy, dx, c, a, b
+    return w4.reshape(cout, 4 * cin, 4, 4)
+
+
+def stem_weight_from_s2d(w4: Tensor, atol: float = 1e-6) -> Tensor:
+    """Inverse of :func:`stem_weight_to_s2d`. Raises where the s2d weight has
+    taps outside the 7x7 field above `atol` (they train in the s2d form and
+    have no 7x7 counterpart), as JAX's ``_s2d_kernel_to_7x7`` does."""
+    cout, cin4, kh, kw = w4.shape
+    if (kh, kw) != (4, 4) or cin4 % 4:
+        raise ValueError(f"not a space-to-depth stem weight: {tuple(w4.shape)}")
+    cin = cin4 // 4
+    w8 = w4.reshape(cout, 2, 2, cin, 4, 4).permute(0, 3, 4, 1, 5, 2).reshape(cout, cin, 8, 8)
+    extra = max(float(w8[:, :, 0, :].abs().max()), float(w8[:, :, :, 0].abs().max()))
+    if extra > atol:
+        raise ValueError(
+            "space-to-depth stem weight has learned taps outside the 7x7 field (max |tap| = "
+            f"{extra:.3g} > atol {atol:.3g}); it is not representable in the reference's 7x7 "
+            "stem schema. Retrain with stem_s2d=False or zero the out-of-field taps explicitly.")
+    return w8[:, :, 1:, 1:].contiguous()
+
+
 def max_pool_torch(x: Tensor, window: int, stride: int) -> Tensor:
     """Max pool with symmetric ``(window - 1) // 2`` padding (-inf padded)."""
     return F.max_pool2d(x, window, stride, (window - 1) // 2)

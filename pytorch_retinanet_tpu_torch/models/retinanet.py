@@ -47,6 +47,7 @@ from .backbone import RESNET_SPECS, BackBone, backbone_out_channels
 from .converter import from_jax_variables
 from .fpn import FeaturePyramid
 from .fused_backbone import apply_trunk_fused, fused_trunk_applicable
+from .layers import stem_weight_from_s2d
 from .head import RetinaNetHead
 from .zoo import fetch_backbone_weights
 
@@ -65,11 +66,9 @@ class RetinaNetModule(nn.Module):
     mode (``module.train()``); in eval mode they use the running statistics,
     as the JAX module does with ``train=False``.
 
-    ``stem_s2d`` is accepted so that the JAX package's configs load, and
-    changes nothing: JAX stores and trains the space-to-depth 4x4 kernel,
-    while the port stores the 7x7 one (the converter folds an s2d kernel
-    into it), and both forms compute the same conv, so the 7x7 conv (or the
-    fused stem kernel) serves either way.
+    ``stem_s2d=True`` stores and trains the space-to-depth stem (a 4x4
+    stride-1 conv over 12 channels, see :mod:`.backbone`), as JAX does; the
+    fused stem kernel, which takes the 7x7 weight, does not serve it.
     """
 
     def __init__(
@@ -92,7 +91,9 @@ class RetinaNetModule(nn.Module):
         self.mean = tuple(mean)
         self.std = tuple(std)
         self.dtype = dtype
-        self.backbone = BackBone(backbone_kind, freeze_bn=freeze_bn, remat=remat)
+        self.stem_s2d = stem_s2d
+        self.backbone = BackBone(backbone_kind, freeze_bn=freeze_bn, remat=remat,
+                                 stem_s2d=stem_s2d)
         self.fpn = FeaturePyramid(*backbone_out_channels(backbone_kind), channels=channels)
         self.retinanet_head = RetinaNetHead(num_classes, num_anchors_per_location(), channels)
 
@@ -131,8 +132,9 @@ class RetinaNetModule(nn.Module):
 
 
 def fused_stem_applicable(module: RetinaNetModule, image_shape: Sequence[int]) -> bool:
-    """The fused stem serves the bf16 module on the shapes the kernel takes."""
-    return module.dtype == torch.bfloat16 and stem_supported(image_shape)
+    """The fused stem serves the bf16 module with the 7x7 stem on the shapes
+    the kernel takes (JAX gates out ``stem_s2d`` the same way)."""
+    return module.dtype == torch.bfloat16 and not module.stem_s2d and stem_supported(image_shape)
 
 
 def stem_constants(module: RetinaNetModule, dtype: torch.dtype):
@@ -560,8 +562,14 @@ class Retinanet:
 
     def to_torch_state_dict(self) -> Dict[str, Tensor]:
         """The weights in the reference detector's ``state_dict`` schema, as
-        CPU tensors, which the reference ``Retinanet`` loads as they are."""
-        return {k: v.detach().cpu().clone() for k, v in self.module.state_dict().items()}
+        CPU tensors, which the reference ``Retinanet`` loads as they are. An
+        s2d stem folds back to 7x7, and raises if it has learned taps
+        outside the 7x7 field."""
+        sd = {k: v.detach().cpu().clone() for k, v in self.module.state_dict().items()}
+        if self.module.stem_s2d:
+            key = "backbone.backbone.conv1.weight"
+            sd[key] = stem_weight_from_s2d(sd[key])
+        return sd
 
     def save_torch_state_dict(self, path: str) -> None:
         """``torch.save`` :meth:`to_torch_state_dict` at `path`."""
@@ -569,7 +577,8 @@ class Retinanet:
 
     # ------------------------------------------------------------------ #
     def state_dict(self) -> Dict[str, Tensor]:
-        """Weights in the reference detector's ``state_dict`` schema."""
+        """The module's weights: the reference detector's ``state_dict``
+        schema, with the [64, 12, 4, 4] stem weight of ``stem_s2d``."""
         return self.module.state_dict()
 
     def load_state_dict(self, state: Any) -> None:

@@ -21,13 +21,14 @@ from .metrics import MetricLogger, ProfilerHook, SmoothedValue, device_memory_st
 def load_obj(obj_path: str, default_obj_path: str = "") -> object:
     """Dotted-path object import (the reference's ``load_obj``).
 
-    Names in the optimizer and scheduler registries resolve to the port's
-    constructors first, so reference config names keep working; the transform
-    registry arrives with the data slice (ROADMAP A8).
+    Names in the transform, optimizer and scheduler registries resolve to
+    the port's classes and constructors first, so reference config names
+    (``albumentations.*``, ``torch.optim.*``) keep working.
     """
+    from ..data.transforms import TRANSFORM_REGISTRY
     from ..engine.optim import OPTIMIZER_REGISTRY, SCHEDULER_REGISTRY
 
-    for registry in (OPTIMIZER_REGISTRY, SCHEDULER_REGISTRY):
+    for registry in (TRANSFORM_REGISTRY, OPTIMIZER_REGISTRY, SCHEDULER_REGISTRY):
         if obj_path in registry:
             return registry[obj_path]
     parts = obj_path.rsplit(".", 1)
@@ -45,11 +46,15 @@ def collate_fn(batch):
 
 
 def seed_everything(seed: int) -> int:
-    """Seed Python's ``random``, numpy and torch (every CUDA device too,
-    through ``torch.manual_seed``), and export ``PL_GLOBAL_SEED``."""
+    """Seed Python's ``random``, numpy, torch (every CUDA device too,
+    through ``torch.manual_seed``) and the transforms' fallback generator
+    for calls without an ``rng``, and export ``PL_GLOBAL_SEED``."""
+    from ..data import transforms
+
     random.seed(seed)
     np.random.seed(seed % (2**32))
     torch.manual_seed(seed)
+    transforms.reseed(seed)
     os.environ["PL_GLOBAL_SEED"] = str(seed)
     return seed
 

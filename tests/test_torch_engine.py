@@ -1,7 +1,7 @@
 """The training engine of the PyTorch port vs the JAX package (CPU).
 
 resnet18, 4 classes, f32, the 64x96 bucket, seeded batches of 2 served by
-a ``RetinaNetModel`` subclass (the data slice is ROADMAP A8), as
+a ``RetinaNetModel`` subclass (no dataset on disk), as
 ``test_torch_train.py``.
 
 * One ``freeze_bn=False`` train step through the port's ``Trainer.fit``

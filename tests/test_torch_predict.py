@@ -192,3 +192,29 @@ def test_import_pulls_in_no_jax():
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_no_module_of_the_port_nor_chip_smoke_imports_jax():
+    """Every import statement in the port's sources and in chip_smoke.py
+    names neither jax / flax nor the JAX package (its jax-free modules
+    included: the port keeps its own copies)."""
+    import ast
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    files = sorted((root / "pytorch_retinanet_tpu_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+    assert len(files) > 40
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                if top in ("jax", "jaxlib", "flax", "optax", "pytorch_retinanet_tpu"):
+                    bad.append(f"{path.relative_to(root)}:{node.lineno} {name}")
+    assert not bad, bad

@@ -4,11 +4,15 @@ resnet18, 4 classes, f32, the 64x96 bucket, as ``test_torch_train.py``.
 Random reference-schema weights (random BN statistics and affine too) go
 into both packages; the same numpy inputs go through both.
 
-* ``stem_s2d``: the port's module built with it (whose stem stays the 7x7
-  conv) against the JAX s2d backbone (its 4x4 kernel repacked by JAX
-  ``stem_kernel_to_s2d`` from the same 7x7 weight): c3 / c4 / c5 within
-  1e-4 of each map's largest |value|; the port's stem with and without it
-  exactly equal, and the fused stem gate the same either way.
+* ``stem_s2d``: the port's module built with it stores the [64, 12, 4, 4]
+  space-to-depth stem weight (loaded from the 7x7 one, repacked as JAX
+  ``stem_kernel_to_s2d`` repacks it) and is held against the JAX s2d
+  backbone and module: c3 / c4 / c5 and every head output, and after one
+  SGD step the loss and the stem weight, each within 1e-4 of the tensor's
+  largest |value| (the update of the stem weight, out-of-field taps
+  included, within 2e-3 of the update's largest); the s2d stem and the 7x7
+  stem exactly equal on integer-valued weights and images (every sum
+  exact); the fused stem gate refuses s2d modules.
 * A ``Retinanet`` runs ``predict`` and the ``forward`` losses in eval mode
   whatever mode its module was left in: a live-BN detector after a train
   step predicts and scores exactly as a fresh one in eval mode, and its
@@ -103,37 +107,133 @@ def _images(seed=0, b=2):
 # ---------------------------------------------------------------------------- #
 # stem_s2d
 # ---------------------------------------------------------------------------- #
+def _jax_s2d_variables(sd):
+    params, stats = torch_retinanet_to_flax(sd, KIND)
+    params = dict(params)
+    params["backbone"] = dict(params["backbone"])
+    params["backbone"]["stem_conv"] = {
+        "kernel": stem_kernel_to_s2d(np.asarray(params["backbone"]["stem_conv"]["kernel"]))}
+    return {"params": params, "batch_stats": stats}
+
+
 def test_stem_s2d_matches_jax_s2d_backbone(state_dict):
-    params, stats = torch_retinanet_to_flax(state_dict, KIND)
-    bp = dict(params["backbone"])
-    bp["stem_conv"] = {"kernel": stem_kernel_to_s2d(bp["stem_conv"]["kernel"])}
+    variables = _jax_s2d_variables(state_dict)
     images = _images()
     module = _module(state_dict, stem_s2d=True).eval()
+    assert module.backbone.backbone.conv1.weight.shape == (64, 12, 4, 4)
+    np.testing.assert_array_equal(
+        module.backbone.backbone.conv1.weight.detach().numpy(),
+        np.asarray(variables["params"]["backbone"]["stem_conv"]["kernel"]).transpose(3, 2, 0, 1))
     x = module.normalize(torch.from_numpy(images))
     want = JaxBackbone(kind=KIND, stem_s2d=True, dtype=jnp.float32).apply(
-        {"params": bp, "batch_stats": stats["backbone"]}, jnp.asarray(x.numpy()), False)
+        {"params": variables["params"]["backbone"],
+         "batch_stats": variables["batch_stats"]["backbone"]}, jnp.asarray(x.numpy()), False)
     with torch.no_grad():
         got = module.backbone(x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last))
+        got_head = module(torch.from_numpy(images))
     for k in ("c3", "c4", "c5"):
         w = np.asarray(want[k])
         g = got[k].permute(0, 2, 3, 1).numpy()
         np.testing.assert_allclose(g, w, rtol=0, atol=1e-4 * float(np.abs(w).max()), err_msg=k)
+    jnet = JaxRetinanet(stem_s2d=True, **MODEL)
+    want_head = jnet.apply(variables, jnp.asarray(images))
+    for g, w in zip(got_head, want_head):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-4 * float(np.abs(w).max()))
+
+
+def test_stem_s2d_sgd_step_matches_jax(state_dict):
+    """One SGD step with momentum and weight decay through each package's
+    trainer step, from the same s2d weights and batch."""
+    import jax
+
+    from pytorch_retinanet_tpu.config import ConfigDict as JaxConfigDict
+    from pytorch_retinanet_tpu.engine import optim as jax_optim
+    from pytorch_retinanet_tpu.engine.model import RetinaNetModel as JaxRetinaNetModel
+    from pytorch_retinanet_tpu.engine.trainer import Trainer as JaxTrainer
+    from pytorch_retinanet_tpu_torch import ConfigDict, RetinaNetModel, Trainer
+
+    optimizer = {"class_name": "torch.optim.SGD",
+                 "params": {"lr": 0.01, "momentum": 0.9, "weight_decay": 0.001}}
+    hp = {"model": {**MODEL, "stem_s2d": True}, "optimizer": optimizer}
+    batch = _batch(3)
+    variables = _jax_s2d_variables(state_dict)
+
+    model = JaxRetinaNetModel(JaxConfigDict(hp))
+    model.net.variables = variables
+    trainer = JaxTrainer(checkpoint_dir=None, devices=jax.devices()[:1], warmup_steps=0)
+    trainer._optimizer = jax_optim.build_optimizer(optimizer["class_name"], optimizer["params"])
+    train_step, _, _ = trainer._build_steps(model)
+    state, metrics = train_step(trainer._init_state(model),
+                                *(jnp.asarray(batch[k]) for k in ("images", "boxes", "labels",
+                                                                  "valid")))
+    want_stem = np.asarray(state.params["backbone"]["stem_conv"]["kernel"]).transpose(3, 2, 0, 1)
+
+    class Served(RetinaNetModel):
+        def prepare_data(self):
+            pass
+
+        def train_dataloader(self, shard=0, num_shards=1):
+            return [batch]
+
+    port = Served(ConfigDict(hp), device="cpu")
+    port.net.load_state_dict(variables)
+    stem = port.net.module.backbone.backbone.conv1.weight
+    before = stem.detach().clone()
+    t = Trainer(max_steps=1, warmup_steps=0, log_every_n_steps=1, num_sanity_val_steps=0)
+    t.fit(port)
+    loss = t.logger_.meters["loss"].value
+    assert abs(loss - float(metrics["loss"])) <= 1e-4 * abs(float(metrics["loss"]))
+    got = stem.detach().numpy()
+    np.testing.assert_allclose(got, want_stem, rtol=0, atol=1e-4 * float(np.abs(want_stem).max()))
+    update, want_update = got - before.numpy(), want_stem - before.numpy()
+    np.testing.assert_allclose(update, want_update, rtol=0,
+                               atol=2e-3 * float(np.abs(want_update).max()))
+    # The 8x8 field's extra row and column (zero in the repacked 7x7) train.
+    w8 = update.reshape(64, 2, 2, 3, 4, 4).transpose(0, 3, 4, 1, 5, 2).reshape(64, 3, 8, 8)
+    assert np.abs(w8[:, :, 0, :]).max() > 0 and np.abs(w8[:, :, :, 0]).max() > 0
 
 
 def test_stem_s2d_equals_the_7x7_stem(state_dict):
-    x = torch.from_numpy(_images(1)).permute(0, 3, 1, 2)
+    """Integer-valued images and weights: every sum of both convs is exact,
+    so the two forms of the stem agree to the last bit."""
+    rng = np.random.default_rng(4)
+    sd = dict(state_dict)
+    sd["backbone.backbone.conv1.weight"] = rng.integers(-3, 4, (64, 3, 7, 7)).astype(np.float32)
+    x = torch.from_numpy(rng.integers(0, 8, (1, 3, 64, 96)).astype(np.float32))
     with torch.no_grad():
-        s2d = _module(state_dict, stem_s2d=True).eval().backbone.backbone.stem(x)
-        ref = _module(state_dict).eval().backbone.backbone.stem(x)
+        s2d = _module(sd, stem_s2d=True).eval().backbone.backbone.stem(x)
+        ref = _module(sd).eval().backbone.backbone.stem(x)
     assert torch.equal(s2d, ref)
 
 
 def test_fused_stem_gate_ignores_s2d():
+    """The gate refuses s2d modules, whose stem weight is not the 7x7 one
+    the kernel takes (as JAX's gate does)."""
     from pytorch_retinanet_tpu_torch.models import fused_stem_applicable
 
     for stem_s2d in (False, True):
         m = RetinaNetModule(backbone_kind=KIND, num_classes=4, stem_s2d=stem_s2d)
-        assert fused_stem_applicable(m, (2, 64, 96, 3))
+        assert fused_stem_applicable(m, (2, 64, 96, 3)) is not stem_s2d
+
+
+def test_s2d_weights_fold_and_raise_like_jax(state_dict):
+    """``to_torch_state_dict`` folds the s2d stem back to the 7x7 one
+    exactly, as JAX's export does, and raises on learned out-of-field taps,
+    as JAX's ``_s2d_kernel_to_7x7`` does."""
+    from pytorch_retinanet_tpu.models.converter import _s2d_kernel_to_7x7
+
+    net = Retinanet(device="cpu", stem_s2d=True, **MODEL)
+    net.load_state_dict(_jax_s2d_variables(state_dict))
+    folded = net.to_torch_state_dict()["backbone.backbone.conv1.weight"]
+    np.testing.assert_array_equal(folded.numpy(), state_dict["backbone.backbone.conv1.weight"])
+    with torch.no_grad():
+        net.module.backbone.backbone.conv1.weight[:, 0, 0, 0] = 0.5  # the tap (dy 0, dx 0) at (0, 0)
+    with pytest.raises(ValueError, match="outside the 7x7"):
+        net.to_torch_state_dict()
+    k4 = net.module.backbone.backbone.conv1.weight.detach().numpy().transpose(2, 3, 1, 0)
+    with pytest.raises(ValueError, match="outside the 7x7"):
+        _s2d_kernel_to_7x7(k4)
 
 
 # ---------------------------------------------------------------------------- #

@@ -91,7 +91,7 @@ def _port_net(variables) -> Retinanet:
 
 
 class _Served(RetinaNetModel):
-    """The port's model serving fixed batches (the data slice is A8)."""
+    """The port's model serving fixed batches (no dataset on disk)."""
 
     def __init__(self, hparams, batches, val=None, **kw):
         super().__init__(hparams, **kw)
@@ -242,15 +242,17 @@ def test_later_knobs_raise_with_their_roadmap_item(knob):
 
 
 def test_trainer_test_predict_and_data_kinds_raise(variables):
+    """Without a test dataset ``test`` and ``predict`` raise naming it (the
+    served model has none); an unknown ``dataset.kind`` raises."""
     t = Trainer()
     model = _served(variables)
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(ValueError, match="no test dataset"):
         t.test(model)
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(ValueError, match="no test dataset"):
         t.predict(model)
-    for kind in ("coco", "pascal", "csv"):
+    for kind in ("voc", "kitti"):
         m = RetinaNetModel(ConfigDict({"model": MODEL, "dataset": {"kind": kind}}), device="cpu")
-        with pytest.raises(NotImplementedError, match="A8"):
+        with pytest.raises(ValueError, match="unknown dataset.kind"):
             m.train_dataloader()
     with pytest.raises(ValueError):
         RetinaNetModel(ConfigDict({"model": MODEL}), device="cpu").prepare_data()
