@@ -127,6 +127,32 @@ Then data and eval from files on disk (phase 12), R50-FPN at full width:
        epochs of 2 steps, warmup 100, clip 10), then ``Trainer.test``: AP
        above 0.5, with its seconds.
 
+Then export and serving (phase 13), R50-FPN at full width (90 classes,
+prior 0.5, seed 0), under ``build/chip_smoke_export/``:
+
+13. a. ``export.save_exported`` of both buckets (800x1344, 1344x800) at
+       batch 8 on the uint8 wire, and ``load_exported`` of each: export,
+       load seconds and ``.pt2`` megabytes;
+    b. per bucket, the loaded program's weights and buffers equal the
+       module's bit for bit with the same strides (channels_last kept);
+       one artifact call on 8 seeded uint8 images against
+       ``Retinanet._predict_impl`` on the same batch: labels and valid
+       exactly, boxes and scores bit for bit or within 1e-3 px and 1e-5
+       (the gap printed); stem (on uint8) and NMS launched once each by
+       that call, read around it alone;
+    c. ``examples/torch_serve.py``'s ``serve`` over 20 seeded landscape
+       JPEGs of mixed sizes written to disk (the last batch partial) at
+       depth 2: stem and NMS once per batch, read around that run; held
+       against ``Retinanet.predict`` on the same decoded images in the
+       server's batches of 8 (the last filled up with black images, since
+       cuDNN picks its algorithms by batch size): labels exactly, scores
+       within 1e-5, boxes within 1e-3 px (the last batch unfilled and one
+       predict of all 20 are printed beside it, not checked);
+    d. times: ``tools/torch_bench_latency.py``'s rows at batch 1 and 8,
+       eager and artifact; the serve loop's img/s at depth 1 against 2 (in
+       turns); the uint8 batch of 8's upload from pinned against pageable
+       memory (CUDA events).
+
 The last lines are the ``kernels`` JSON, the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -1764,6 +1790,224 @@ def fused_trunk_phases(dev, results, net, batch, sizes) -> None:
                     f"ms (their module blocks {d - tot['library_ms']:.3f} ms)")
 
 
+# Phase 13: export and serving. Artifacts and the served JPEGs land under
+# build/chip_smoke_export/.
+SERVE_BATCH = 8
+# 20 landscape JPEGs of mixed sizes: two full batches of 8 and a partial one.
+SERVE_SIZES = ((800, 1333), (480, 640), (600, 1000), (720, 1280), (427, 640))
+SERVE_IMAGES = 20
+SERVE_SCORE_TOL, SERVE_BOX_TOL = 1e-5, 1e-3
+SERVE_NET = dict(backbone_kind="resnet50", num_classes=90, pretrained=False, prior=0.5, seed=0)
+
+
+def load_script(name: str, relpath: str):
+    """A script of this checkout (``examples/``, ``tools/``) as a module."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), relpath)
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def read_launches() -> dict:
+    from pytorch_retinanet_tpu_torch import KERNELS
+
+    return {k.name: k.wrapper.launches for k in KERNELS}
+
+
+def check_served_launches(what: str, launches: dict, calls: int) -> None:
+    """The export/serve path launched stem (last on uint8) and NMS `calls`
+    times each, and no other kernel."""
+    from pytorch_retinanet_tpu_torch.kernels import stem_forward
+
+    want = {k: calls if k in PREDICT_KERNELS else 0 for k in launches}
+    if launches != want or stem_forward.last_dtype != torch.uint8:
+        raise SystemExit(f"{what} launched {launches}, the stem last on {stem_forward.last_dtype}; "
+                         f"expected {want}, the stem on uint8")
+
+
+def export_buckets(net, work: str) -> dict:
+    """13a: both buckets at batch 8 on the uint8 wire, saved and loaded."""
+    from pytorch_retinanet_tpu_torch.export import load_exported, save_exported
+    from pytorch_retinanet_tpu_torch.models.retinanet import resolution_buckets
+
+    loaded = {}
+    for bucket in resolution_buckets(net.min_size, net.max_size):
+        name = f"{net.backbone_kind}_{bucket[0]}x{bucket[1]}_b{SERVE_BATCH}_u8.pt2"
+        path = os.path.join(work, name)
+        t0 = time.perf_counter()
+        save_exported(net, path, SERVE_BATCH, bucket, wire_dtype="uint8")
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        infer = load_exported(path)
+        load_s = time.perf_counter() - t0
+        if infer.in_shapes[0] != ((SERVE_BATCH, *bucket, 3), torch.uint8) or \
+                infer.device != net.device:
+            raise SystemExit(f"artifact {path}: inputs {infer.in_shapes}, device {infer.device}")
+        log(f"[export] {bucket[0]}x{bucket[1]} batch {SERVE_BATCH} uint8: export (trace and save) "
+            f"{export_s:.2f} s, load {load_s:.2f} s, {os.path.getsize(path) / 1e6:.1f} MB")
+        loaded[bucket] = infer
+    return loaded
+
+
+def artifact_against_eager(net, infer, bucket, rng) -> None:
+    """13b: the loaded weights, then one artifact call against
+    ``_predict_impl`` on the same seeded uint8 batch, with the launches
+    read around the artifact call alone."""
+    from pytorch_retinanet_tpu_torch.kernels import reset_launch_counts
+
+    mine = dict(net.module.named_parameters())
+    mine.update(net.module.named_buffers())
+    anchors = net._anchors_for(bucket)
+    n_cl = 0
+    for name, t in list(infer.program.named_parameters()) + list(infer.program.named_buffers()):
+        ref = anchors[int(name[8:])] if name.startswith("anchors_") else mine[name[7:]]
+        if not torch.equal(t, ref) or t.stride() != ref.stride():
+            raise SystemExit(f"artifact tensor {name} differs from the module's (strides "
+                             f"{t.stride()} against {ref.stride()})")
+        n_cl += t.dim() == 4 and t.is_contiguous(memory_format=torch.channels_last)
+    h, w = bucket
+    x = torch.from_numpy(rng.integers(0, 256, (SERVE_BATCH, h, w, 3), dtype=np.uint8))
+    x = x.to(net.device)
+    resized = (net.min_size, net.max_size) if h < w else (net.max_size, net.min_size)
+    sizes = torch.tensor([resized] * SERVE_BATCH, dtype=torch.float32, device=net.device)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    got = infer.dispatch(x, sizes)
+    torch.cuda.synchronize()
+    check_served_launches(f"the {h}x{w} artifact's call", read_launches(), 1)
+    want = net._predict_impl(x, sizes)
+    for k, g, r in zip(("boxes", "scores", "labels", "valid"), got, want):
+        if g.shape != r.shape or g.dtype != r.dtype:
+            raise SystemExit(f"artifact {k}: {tuple(g.shape)} {g.dtype} against eager "
+                             f"{tuple(r.shape)} {r.dtype}")
+    if not (torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])):
+        raise SystemExit("artifact labels or valid differ from eager _predict_impl")
+    box_gap = float((got[0] - want[0]).abs().max())
+    score_gap = float((got[1] - want[1]).abs().max())
+    same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if not same and (box_gap > SERVE_BOX_TOL or score_gap > SERVE_SCORE_TOL):
+        raise SystemExit(f"artifact against eager: boxes {box_gap}, scores {score_gap}")
+    log(f"[export] {h}x{w} artifact against eager _predict_impl on {SERVE_BATCH} uint8 images: "
+        f"labels and valid exact, boxes and scores "
+        + ("bit for bit" if same else f"within {box_gap:.3g} px / {score_gap:.3g}")
+        + f"; {int(want[3].sum())} detections; its {len(mine)} weights and buffers equal the "
+        f"module's, {n_cl} 4-D ones channels_last; stem (uint8) and NMS launched once")
+
+
+def write_serve_images(root: str, rng) -> list:
+    import cv2
+
+    os.makedirs(root, exist_ok=True)
+    paths = []
+    for i in range(SERVE_IMAGES):
+        h, w = SERVE_SIZES[i % len(SERVE_SIZES)]
+        path = os.path.join(root, f"{i:02d}.jpg")
+        cv2.imwrite(path, rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+        paths.append(path)
+    return paths
+
+
+def detection_gaps(got: list, want: list) -> tuple:
+    """(the images whose labels differ, max score gap, max box gap over the
+    others)."""
+    bad, s_gap, b_gap = [], 0.0, 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if len(g["labels"]) != len(w["labels"]) or not np.array_equal(g["labels"], w["labels"]):
+            bad.append(i)
+        elif len(g["labels"]):
+            s_gap = max(s_gap, float(np.abs(g["scores"] - w["scores"]).max()))
+            b_gap = max(b_gap, float(np.abs(g["boxes"] - w["boxes"]).max()))
+    return bad, s_gap, b_gap
+
+
+def log_gaps(what: str, gaps: tuple) -> None:
+    bad, s_gap, b_gap = gaps
+    log(f"[serve] {what}: labels " + (f"differ on images {bad}" if bad else "exact")
+        + f", scores within {s_gap:.3g}, boxes within {b_gap:.3g} px")
+
+
+def serve_against_predict(net, infer, paths, serve) -> None:
+    """13c: the serve core over the JPEGs against ``Retinanet.predict`` on
+    the same decoded images, in the server's batches; the launches read
+    around the serve run. cuDNN picks its algorithms by batch size, so
+    predict's last, partial batch is filled up to the server's batch with
+    black images of its first image's size (the server fills it with zero
+    rows): each image then goes through the same convolutions."""
+    from pytorch_retinanet_tpu_torch.kernels import reset_launch_counts
+
+    serve.serve(infer, paths[:SERVE_BATCH])  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    got = serve.serve(infer, paths, depth=2)
+    torch.cuda.synchronize()
+    batches = -(-len(paths) // SERVE_BATCH)
+    check_served_launches(f"serving {len(paths)} images", read_launches(), batches)
+    decoded = [serve.read_rgb(p) for p in paths]
+    want, unfilled = [], []
+    for i in range(0, len(decoded), SERVE_BATCH):
+        chunk = decoded[i:i + SERVE_BATCH]
+        fill = [np.zeros_like(chunk[0])] * (SERVE_BATCH - len(chunk))
+        want += net.predict(chunk + fill)[:len(chunk)]
+        unfilled += net.predict(chunk) if fill else []
+    gaps = detection_gaps(got, want)
+    log(f"[serve] {len(paths)} JPEGs ({', '.join(f'{h}x{w}' for h, w in SERVE_SIZES)}) in "
+        f"{batches} batches of {SERVE_BATCH}, the last partial, at depth 2; stem (uint8) and NMS "
+        f"{batches} launches each")
+    log_gaps(f"against predict in batches of {SERVE_BATCH}", gaps)
+    tail = len(paths) - len(unfilled)
+    log_gaps(f"(not checked) images {tail}-{len(paths) - 1} against predict at batch "
+             f"{len(unfilled)}", detection_gaps(got[tail:], unfilled))
+    log_gaps(f"(not checked) against one predict of all {len(paths)}",
+             detection_gaps(got, net.predict(decoded)))
+    if gaps[0] or gaps[1] > SERVE_SCORE_TOL or gaps[2] > SERVE_BOX_TOL:
+        raise SystemExit("the serve loop's detections differ from predict's")
+    check_detections(got)
+
+
+def serving_times(net, infer, paths, serve) -> None:
+    """13d: the latency rows at batch 1 and 8, eager and artifact; the serve
+    loop at depth 1 against 2; the uint8 batch's upload, pinned against
+    pageable."""
+    latency = load_script("torch_bench_latency", os.path.join("tools", "torch_bench_latency.py"))
+    latency.bench(net, (1, SERVE_BATCH), iters=20, artifacts={SERVE_BATCH: infer})
+    rates = {1: [], 2: []}
+    for depth in (1, 2, 2, 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve.serve(infer, paths, depth=depth)
+        rates[depth].append(len(paths) / (time.perf_counter() - t0))
+    log(f"[serve] {len(paths)} JPEGs (decode, cv2 resize, upload, artifact, fetch), host clock: "
+        f"depth 1 {rates[1][0]:.1f} / {rates[1][1]:.1f} img/s, depth 2 {rates[2][0]:.1f} / "
+        f"{rates[2][1]:.1f} img/s (runs in turns 1, 2, 2, 1)")
+    h, w = infer.in_shapes[0].shape[1:3]
+    pinned = latency.transfer_ms(SERVE_BATCH, h, w, torch.uint8)
+    pageable = latency.transfer_ms(SERVE_BATCH, h, w, torch.uint8, pinned=False)
+    mb = SERVE_BATCH * h * w * 3 / 1e6
+    log(f"[serve] upload of the uint8 batch [{SERVE_BATCH}, {h}, {w}, 3] ({mb:.1f} MB), CUDA "
+        f"events, median of 10: pinned {pinned:.3f} ms ({mb / pinned:.1f} GB/s), pageable "
+        f"{pageable:.3f} ms ({mb / pageable:.1f} GB/s)")
+
+
+def export_serve_phases(dev) -> None:
+    """Phase 13: export, load and serve R50-FPN at full width."""
+    from pytorch_retinanet_tpu_torch.models.retinanet import Retinanet, resolution_buckets
+
+    t0 = time.perf_counter()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_export")
+    net = Retinanet(**SERVE_NET)
+    rng = np.random.default_rng(13)
+    artifacts = export_buckets(net, work)
+    for bucket, infer in artifacts.items():
+        artifact_against_eager(net, infer, bucket, rng)
+    landscape = artifacts[resolution_buckets(net.min_size, net.max_size)[0]]
+    serve = load_script("torch_serve", os.path.join("examples", "torch_serve.py"))
+    paths = write_serve_images(os.path.join(work, "images"), rng)
+    serve_against_predict(net, landscape, paths, serve)
+    serving_times(net, landscape, paths, serve)
+    log(f"[export] phase 13 took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card only",
@@ -1998,6 +2242,8 @@ def main() -> int:
     live_bn_phases(dev)
     torch.cuda.empty_cache()
     data_eval_phases(dev, step_ms)
+    torch.cuda.empty_cache()
+    export_serve_phases(dev)
 
     log(json.dumps({"kernels": [results[k.name] for k in KERNELS]}))
     print(smi)

@@ -5,7 +5,9 @@ Inference (``Retinanet.predict``, and the opt-in fused trunk through
 the ``Trainer``) run on CUDA with hand-written kernels for the fused stem,
 greedy NMS, the loss's anchor matching, the fused identity bottleneck and
 the per-row top-2 classes (``kernels``); everything else is plain PyTorch on
-cuDNN. The package imports neither JAX nor the JAX package.
+cuDNN. ``export`` records the inference program as one ``torch.export``
+artifact per bucket, the stem and NMS kernels kept as custom ops. The
+package imports neither JAX nor the JAX package.
 
 The reference's surface::
 

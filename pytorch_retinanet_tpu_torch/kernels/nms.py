@@ -6,9 +6,11 @@ or arithmetic; ``csrc/nms.cu`` says how its two passes are laid out: a
 triangular bitmask pass, then one warp per image resolving 64-candidate
 chunks in registers.
 
-:func:`nms_keep_mask` is the wrapper: for a CPU tensor it computes the plain
-version, for a CUDA tensor it launches the kernel (and counts the launch in
-``nms_keep_mask.launches``) or raises.
+:func:`nms_keep_mask` is the wrapper: it checks its arguments and calls the
+custom op ``torch.ops.retinanet_torch.nms_keep_mask``, which computes the
+plain version for a CPU tensor and, for a CUDA tensor, launches the kernel
+(counting the launch in ``nms_keep_mask.launches``) or raises. Graphs that
+``torch.export`` records keep the op.
 """
 
 from __future__ import annotations
@@ -42,26 +44,8 @@ def nms_keep_mask_plain(boxes: Tensor, valid: Tensor, iou_thr: float) -> Tensor:
     return keep
 
 
-def nms_keep_mask(boxes: Tensor, valid: Tensor, iou_thr: float) -> Tensor:
-    """Greedy-NMS keep mask for score-descending candidates.
-
-    Args:
-      boxes: [B, K, 4] f32 XYXY, each row sorted by score descending.
-      valid: [B, K] bool, the candidates to consider at all.
-      iou_thr: strict ``>`` suppression threshold.
-
-    Returns:
-      [B, K] bool, equal to sequential greedy NMS on each image.
-    """
-    if boxes.dim() != 3 or boxes.shape[-1] != 4 or valid.shape != boxes.shape[:2]:
-        raise ValueError(f"expected boxes [B, K, 4] and valid [B, K], got "
-                         f"{tuple(boxes.shape)} and {tuple(valid.shape)}")
-    if boxes.device.type == "cpu":
-        return nms_keep_mask_plain(boxes, valid, iou_thr)
-    if boxes.device.type != "cuda" or valid.device != boxes.device:
-        raise ValueError(f"nms_keep_mask: boxes on {boxes.device}, valid on {valid.device}")
-    if boxes.dtype != torch.float32 or valid.dtype != torch.bool:
-        raise TypeError(f"nms_keep_mask wants f32 boxes and bool valid, got {boxes.dtype}, {valid.dtype}")
+def _launch(boxes: Tensor, valid: Tensor, iou_thr: float) -> Tensor:
+    """The op's CUDA implementation: one launch of ``csrc/nms.cu``."""
     b, k = valid.shape
     if b == 0 or k == 0:
         return valid.clone()
@@ -86,6 +70,45 @@ def nms_keep_mask(boxes: Tensor, valid: Tensor, iou_thr: float) -> Tensor:
         raise RuntimeError(f"nms kernel launch failed with CUDA error {err}")
     nms_keep_mask.launches += 1
     return keep
+
+
+# The op that graphs (``torch.export``) record: its CPU implementation is the
+# plain version (whose fixpoint loop ends on the data, which a graph cannot
+# hold), its CUDA one the kernel; the fake one gives the shape.
+@torch.library.custom_op("retinanet_torch::nms_keep_mask", mutates_args=(), device_types="cpu")
+def _nms_op(boxes: Tensor, valid: Tensor, iou_thr: float) -> Tensor:
+    return nms_keep_mask_plain(boxes, valid, iou_thr)
+
+
+_nms_op.register_kernel("cuda")(_launch)
+
+
+@_nms_op.register_fake
+def _nms_fake(boxes, valid, iou_thr):
+    return torch.empty_like(valid)
+
+
+def nms_keep_mask(boxes: Tensor, valid: Tensor, iou_thr: float) -> Tensor:
+    """Greedy-NMS keep mask for score-descending candidates.
+
+    Args:
+      boxes: [B, K, 4] f32 XYXY, each row sorted by score descending.
+      valid: [B, K] bool, the candidates to consider at all.
+      iou_thr: strict ``>`` suppression threshold.
+
+    Returns:
+      [B, K] bool, equal to sequential greedy NMS on each image.
+    """
+    if boxes.dim() != 3 or boxes.shape[-1] != 4 or valid.shape != boxes.shape[:2]:
+        raise ValueError(f"expected boxes [B, K, 4] and valid [B, K], got "
+                         f"{tuple(boxes.shape)} and {tuple(valid.shape)}")
+    if boxes.device.type != "cpu":
+        if boxes.device.type != "cuda" or valid.device != boxes.device:
+            raise ValueError(f"nms_keep_mask: boxes on {boxes.device}, valid on {valid.device}")
+        if boxes.dtype != torch.float32 or valid.dtype != torch.bool:
+            raise TypeError(f"nms_keep_mask wants f32 boxes and bool valid, got {boxes.dtype}, "
+                            f"{valid.dtype}")
+    return torch.ops.retinanet_torch.nms_keep_mask(boxes, valid, float(iou_thr))
 
 
 nms_keep_mask.launches = 0

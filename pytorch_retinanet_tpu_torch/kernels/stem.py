@@ -6,16 +6,19 @@ ReLU -> 3x3 stride-2 max pool (pad 1), NHWC in and out, from uint8 or f32
 images. The kernel runs the conv as an implicit GEMM on the tensor cores;
 the source's header note gives the bound and the design.
 
-:func:`stem_forward` is the wrapper: for a CPU tensor it computes the plain
-version, for a CUDA tensor it launches the kernel (and counts the launch in
-``stem_forward.launches``) or raises. Its gradient recomputes through the
-plain version, as the TPU kernel's custom VJP does.
+:func:`stem_forward` is the wrapper: it checks its arguments and calls the
+custom op ``torch.ops.retinanet_torch.stem_forward``, which computes the
+plain version for a CPU tensor and, for a CUDA tensor, launches the kernel
+(counting the launch in ``stem_forward.launches``) or raises. Graphs that
+``torch.export`` records keep the op, so a loaded artifact launches the
+kernel through the same count. Its gradient recomputes through the plain
+version, as the TPU kernel's custom VJP does.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Union
+from typing import List, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -91,15 +94,14 @@ def pack_stem_weights(w_oihw: Tensor) -> Tensor:
     return b[:, n[:, None], swz].reshape(3, 64, 64).contiguous()
 
 
-def _launch(images: Tensor, mean: Tensor, std: Tensor, w_oihw: Tensor, scale: Tensor,
+def _launch(images: Tensor, mean: List[float], std: List[float], w_oihw: Tensor, scale: Tensor,
             bias: Tensor) -> Tensor:
-    from .build import load
+    """The op's CUDA implementation: one launch of ``csrc/stem.cu``."""
+    from .build import bind
 
-    lib = load("stem")
-    fn = lib.stem_forward
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_float] * 6 + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = bind("stem", "stem_forward",
+              [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_float] * 6 + [ctypes.c_void_p] * 4
+              + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     b, h, w, _ = images.shape
     x = images.contiguous()
     if x.data_ptr() % 16:
@@ -110,7 +112,7 @@ def _launch(images: Tensor, mean: Tensor, std: Tensor, w_oihw: Tensor, scale: Te
     out = torch.empty((b, h // 4, w // 4, 64), dtype=torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), int(x.dtype == torch.uint8), *mean.tolist(), *std.tolist(),
+        err = fn(x.data_ptr(), int(x.dtype == torch.uint8), *mean, *std,
                  wp.data_ptr(), sc.data_ptr(), bi.data_ptr(), out.data_ptr(), b, h, w, stream)
     if err != 0:
         raise RuntimeError(f"stem kernel launch failed with CUDA error {err}")
@@ -119,21 +121,48 @@ def _launch(images: Tensor, mean: Tensor, std: Tensor, w_oihw: Tensor, scale: Te
     return out
 
 
-class _FusedStem(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, images, mean, std, w_oihw, scale, bias):
-        ctx.save_for_backward(images, mean, std, w_oihw, scale, bias)
-        return _launch(images, mean, std, w_oihw, scale, bias)
+# The op that graphs (``torch.export``) record: its CPU implementation is the
+# plain version, its CUDA one the kernel; the fake one gives the shape.
+@torch.library.custom_op("retinanet_torch::stem_forward", mutates_args=(), device_types="cpu")
+def _stem_op(images: Tensor, mean: List[float], std: List[float], w_oihw: Tensor, scale: Tensor,
+             bias: Tensor) -> Tensor:
+    return stem_plain(images, mean, std, w_oihw, scale, bias)
 
-    @staticmethod
-    def backward(ctx, grad):
-        inputs = [t.detach().requires_grad_(need) for t, need in
-                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        with torch.enable_grad():
-            y = stem_plain(*inputs)
-        wanted = [t for t in inputs if t.requires_grad]
-        grads = iter(torch.autograd.grad(y, wanted, grad) if wanted else [])
-        return tuple(next(grads) if t.requires_grad else None for t in inputs)
+
+_stem_op.register_kernel("cuda")(_launch)
+
+
+@_stem_op.register_fake
+def _stem_fake(images, mean, std, w_oihw, scale, bias):
+    b, h, w, _ = images.shape
+    return images.new_empty((b, h // 4, w // 4, 64), dtype=torch.bfloat16)
+
+
+def _stem_setup_context(ctx, inputs, output):
+    images, mean, std, w_oihw, scale, bias = inputs
+    ctx.save_for_backward(images, w_oihw, scale, bias)
+    ctx.constants = (mean, std)
+
+
+def _stem_backward(ctx, grad):
+    """Recompute through the plain version, as the TPU kernel's custom VJP does."""
+    needs = [ctx.needs_input_grad[i] for i in (0, 3, 4, 5)]
+    images, w_oihw, scale, bias = (t.detach().requires_grad_(need)
+                                   for t, need in zip(ctx.saved_tensors, needs))
+    with torch.enable_grad():
+        y = stem_plain(images, *ctx.constants, w_oihw, scale, bias)
+    wanted = [t for t in (images, w_oihw, scale, bias) if t.requires_grad]
+    grads = iter(torch.autograd.grad(y, wanted, grad) if wanted else [])
+    gi, gw, gs, gb = (next(grads) if t.requires_grad else None
+                      for t in (images, w_oihw, scale, bias))
+    return gi, None, None, gw, gs, gb
+
+
+_stem_op.register_autograd(_stem_backward, setup_context=_stem_setup_context)
+
+
+def _constant_list(c: Constants) -> List[float]:
+    return [float(v) for v in (c.tolist() if isinstance(c, Tensor) else c)]
 
 
 def stem_forward(images: Tensor, mean: Constants, std: Constants, w_oihw: Tensor, scale: Tensor,
@@ -158,13 +187,15 @@ def stem_forward(images: Tensor, mean: Constants, std: Constants, w_oihw: Tensor
     if tuple(w_oihw.shape) != (64, 3, 7, 7) or scale.shape != (64,) or bias.shape != (64,):
         raise ValueError(f"fused stem weight/scale/bias shapes {tuple(w_oihw.shape)}, "
                          f"{tuple(scale.shape)}, {tuple(bias.shape)}")
-    if images.device.type == "cpu":
-        return stem_plain(images, mean, std, w_oihw, scale, bias)
-    if images.device.type != "cuda" or any(t.device != images.device for t in (w_oihw, scale, bias)):
+    # The constants reach the kernel by value, so they travel as floats.
+    mean, std = _constant_list(mean), _constant_list(std)
+    if len(mean) != 3 or len(std) != 3:
+        raise ValueError(f"fused stem takes 3 means and 3 stds, got ({len(mean)},), ({len(std)},)")
+    kind = images.device.type
+    if kind not in ("cpu", "cuda") or (
+            kind == "cuda" and any(t.device != images.device for t in (w_oihw, scale, bias))):
         raise ValueError("fused stem: every input must lie on the same CUDA device")
-    # The constants reach the kernel by value; on the host they cost no copy.
-    mean, std = _constants(mean, std, "cpu")
-    return _FusedStem.apply(images, mean, std, w_oihw, scale, bias)
+    return torch.ops.retinanet_torch.stem_forward(images, mean, std, w_oihw, scale, bias)
 
 
 stem_forward.launches = 0

@@ -387,15 +387,19 @@ class Retinanet:
             self.module.train(was)
 
     @torch.inference_mode()
-    def _predict_impl(self, images: Tensor, image_sizes: Tensor) -> Detections:
+    def _predict_impl(
+        self, images: Tensor, image_sizes: Tensor, anchors: Optional[List[Tensor]] = None
+    ) -> Detections:
         """Padded [B, H, W, 3] batch and [B, 2] resized sizes -> batched
-        detections, in eval mode (running statistics, as JAX's train=False)."""
+        detections, in eval mode (running statistics, as JAX's train=False).
+        `anchors` defaults to the batch's bucket's; the export passes its
+        own buffers of them."""
         with self._mode(False):
             cls_levels, box_levels = apply_detector(self.module, images, return_levels=True)
         return process_detections_multilevel_batch(
             cls_levels,
             box_levels,
-            self._anchors_for(tuple(images.shape[1:3])),
+            self._anchors_for(tuple(images.shape[1:3])) if anchors is None else anchors,
             image_sizes,
             score_thres=self.score_thres,
             nms_thres=self.nms_thres,

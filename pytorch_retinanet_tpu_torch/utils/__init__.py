@@ -1,7 +1,7 @@
-"""Host-side utilities of the port: telemetry, FLOPs, and the reference's helpers.
+"""Host-side utilities of the port: telemetry, FLOPs, drawing, and the reference's helpers.
 
 Counterpart of ``pytorch_retinanet_tpu/utils/__init__.py`` (``load_obj``,
-``collate_fn``, ``seed_everything``). Its ``enable_compilation_cache`` is
+``collate_fn``, ``seed_everything``, the box drawing of ``visualize``). Its ``enable_compilation_cache`` is
 JAX's persistent XLA cache and has no counterpart here: the port's kernels
 are cached by ``kernels/build.py`` under ``build/``, keyed on their source.
 """
@@ -16,6 +16,11 @@ import numpy as np
 import torch
 
 from .metrics import MetricLogger, ProfilerHook, SmoothedValue, device_memory_stats
+from .visualize import (
+    STANDARD_COLORS,
+    draw_bounding_box_on_image,
+    visualize_boxes_and_labels_on_image_array,
+)
 
 
 def load_obj(obj_path: str, default_obj_path: str = "") -> object:
@@ -61,10 +66,13 @@ def seed_everything(seed: int) -> int:
 
 __all__ = [
     "MetricLogger",
+    "STANDARD_COLORS",
     "ProfilerHook",
     "SmoothedValue",
     "collate_fn",
     "device_memory_stats",
+    "draw_bounding_box_on_image",
     "load_obj",
     "seed_everything",
+    "visualize_boxes_and_labels_on_image_array",
 ]

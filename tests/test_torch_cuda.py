@@ -17,7 +17,10 @@ kernel within 1 bf16 ulp of the element plus 1 bf16 ulp (2**-8) of the
 output's largest value, on every row, border rows included (the f32 sums run
 in another order and flip bf16 roundings of y1 and y2, which move an output
 by a term of the output's scale, not of the element's), and at least 90% of
-the outputs equal; the top-2 kernel exactly.
+the outputs equal; the top-2 kernel exactly; an artifact exported on the
+card equal to eager ``_predict_impl`` bit for bit, and the serve loop over
+it equal to ``predict`` on the same full batches (labels exactly, scores
+within 1e-5, boxes within 1e-3 px).
 """
 
 from __future__ import annotations
@@ -589,3 +592,77 @@ def test_profiler_hook_writes_a_trace(dev, tmp_path):
     with open(trainer.profiler.trace_path) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("cat") == "kernel" for e in events)  # device activity was traced
+
+
+# ---------------------------------------------------------------------------- #
+# Export and serving on the card
+# ---------------------------------------------------------------------------- #
+def _small_bf16_net():
+    return Retinanet(backbone_kind="resnet18", num_classes=4, pretrained=False, min_size=64,
+                     max_size=96, prior=0.5)
+
+
+def test_artifact_on_the_card_equals_eager_and_launches_the_kernels(dev):
+    """A uint8 artifact exported on the card: its weights equal the module's
+    and keep their memory format; one call launches the stem (on uint8) and
+    NMS once each and equals ``_predict_impl`` bit for bit."""
+    from pytorch_retinanet_tpu_torch.export import export_inference, load_exported
+
+    net = _small_bf16_net()
+    infer = load_exported(export_inference(net, 2, wire_dtype="uint8"))
+    assert infer.device.type == "cuda" and infer.meta["device"] == "cuda"
+    mine = dict(net.module.named_parameters())
+    for name, p in infer.program.named_parameters():
+        want = mine[name.removeprefix("module.")]
+        assert p.device == want.device and p.stride() == want.stride(), name
+        assert torch.equal(p, want), name
+    images = torch.from_numpy(np.random.default_rng(5).integers(0, 256, (2, 64, 96, 3),
+                                                                dtype=np.uint8)).to(dev)
+    sizes = torch.tensor([[64.0, 96.0], [60.0, 90.0]], device=dev)
+    stem_before, nms_before = stem_forward.launches, nms_keep_mask.launches
+    got = infer.dispatch(images, sizes)
+    torch.cuda.synchronize()
+    assert stem_forward.launches == stem_before + 1 and stem_forward.last_dtype == torch.uint8
+    assert nms_keep_mask.launches == nms_before + 1
+    want = net._predict_impl(images, sizes)
+    assert int(want.valid.sum()) > 0
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_serve_on_the_card_uses_a_pinned_ring(dev, monkeypatch):
+    """The serve loop's host buffers are page-locked on the card, and its
+    detections equal ``predict`` on the same batches (full batches, so both
+    run the same batch size): labels exactly, scores within 1e-5, boxes
+    within 1e-3 px."""
+    import importlib.util
+    from pathlib import Path
+
+    from pytorch_retinanet_tpu_torch.export import export_inference, load_exported
+
+    path = Path(__file__).resolve().parents[1] / "examples" / "torch_serve.py"
+    spec = importlib.util.spec_from_file_location("torch_serve", path)
+    torch_serve = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(torch_serve)
+    slots = []
+    init = torch_serve._Slot.__init__
+
+    def recording_init(self, *args):
+        init(self, *args)
+        slots.append(self)
+
+    monkeypatch.setattr(torch_serve._Slot, "__init__", recording_init)
+    net = _small_bf16_net()
+    infer = load_exported(export_inference(net, 2, wire_dtype="uint8"))
+    rng = np.random.default_rng(6)
+    images = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+              for h, w in [(60, 90), (48, 80), (70, 100), (64, 96)]]
+    got = torch_serve.serve(infer, images, depth=2)
+    assert len(slots) == 2 and all(s.images.is_pinned() and s.sizes.is_pinned() for s in slots)
+    assert all(t.is_pinned() for s in slots for t in s.outputs)
+    want = net.predict(images[:2]) + net.predict(images[2:])
+    for g, w in zip(got, want):
+        assert len(g["labels"]) == len(w["labels"]) > 0
+        np.testing.assert_array_equal(g["labels"], w["labels"])
+        np.testing.assert_allclose(g["scores"], w["scores"], rtol=0, atol=1e-5)
+        np.testing.assert_allclose(g["boxes"], w["boxes"], rtol=0, atol=1e-3)

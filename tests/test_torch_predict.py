@@ -195,15 +195,18 @@ def test_import_pulls_in_no_jax():
 
 
 def test_no_module_of_the_port_nor_chip_smoke_imports_jax():
-    """Every import statement in the port's sources and in chip_smoke.py
-    names neither jax / flax nor the JAX package (its jax-free modules
-    included: the port keeps its own copies)."""
+    """Every import statement in the port's sources, its examples and tools
+    (``examples/torch_*.py``, ``tools/torch_*.py``) and chip_smoke.py names
+    neither jax / flax nor the JAX package (its jax-free modules included:
+    the port keeps its own copies)."""
     import ast
     from pathlib import Path
 
     root = Path(__file__).resolve().parents[1]
-    files = sorted((root / "pytorch_retinanet_tpu_torch").rglob("*.py")) + [root / "chip_smoke.py"]
-    assert len(files) > 40
+    files = (sorted((root / "pytorch_retinanet_tpu_torch").rglob("*.py"))
+             + sorted((root / "examples").glob("torch_*.py"))
+             + sorted((root / "tools").glob("torch_*.py")) + [root / "chip_smoke.py"])
+    assert len(files) > 54
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):

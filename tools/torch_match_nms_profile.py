@@ -16,8 +16,9 @@ time per kernel) and CUDA events around the same calls:
    wrapper's host time at P3, its output allocations and its C call alone;
 2. the NMS kernel on the main path's candidates (phase 4's R50-FPN, prior
    0.5, seed 0, 32 seeded images), then that detector's forward and predict
-   composition (``_predict_impl``) on the same batch with CUDA events, and
-   the postprocess alone: its launches, device and host time.
+   composition (``_predict_impl``) on the same batch with CUDA events, the
+   postprocess alone (its launches, device and host time), and phase 5's
+   end-to-end ``predict`` of the 32 images (median of 5, host clock).
 
 The helpers (the profiler window, the seeded inputs) are this checkout's
 ``chip_smoke.py``. Imports nothing of JAX.
@@ -108,7 +109,7 @@ def main() -> int:
     smoke.log(f"[host] match wrapper at level 0: {host['wrapper']:.1f} us per call; its three "
               f"output allocations {host['allocations']:.1f} us; the C call alone {host['c_call']:.1f} us")
 
-    _, _, batch, sizes = smoke.main_path_batch(dev)
+    _, images, batch, sizes = smoke.main_path_batch(dev)
     net = Retinanet(backbone_kind="resnet50", num_classes=90, pretrained=False, prior=0.5, seed=0)
     cboxes, cvalid = smoke.nms_candidates(net, batch, sizes)
     t = smoke.device_times(lambda: nms_keep_mask(cboxes, cvalid, 0.5), iters=50)
@@ -125,6 +126,15 @@ def main() -> int:
     smoke.log(f"[predict] composition (forward + postprocess, CUDA events) {composition:.3f} ms, "
               f"{smoke.BATCH / composition * 1e3:.1f} img/s; forward {forward:.3f} ms; postprocess "
               f"{composition - forward:.3f} ms")
+    net.predict(images[:2])  # warm-up, as phase 4
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        net.predict(images)
+        times.append(time.perf_counter() - t0)
+    per_batch = sorted(times)[2]
+    smoke.log(f"[e2e] predict batch {smoke.BATCH}: median {per_batch * 1e3:.1f} ms over 5 -> "
+              f"{smoke.BATCH / per_batch:.1f} img/s (host clock, chip_smoke.py phase 5's measure)")
     top = sorted(post["kernels"].items(), key=lambda kv: -kv[1][0])[:12]
     smoke.log(f"[postprocess] alone: device {smoke.device_ms(post) * 1e3:.1f} us per call in "
               f"{sum(n for _, n in post['kernels'].values()):g} launches; CUDA events "
