@@ -153,6 +153,42 @@ prior 0.5, seed 0), under ``build/chip_smoke_export/``:
        turns); the uint8 batch of 8's upload from pinned against pageable
        memory (CUDA events).
 
+Then data parallel (phase 14), on ``torch.distributed``. The card machine has
+one H100: NCCL runs at world size 1, and the cross-rank checks run two gloo
+ranks sharing the card (``tools/torch_multihost_smoke.py`` spawns them, each
+joins within ``DDP_TIMEOUT``; the kernels, built in phase 1, are loaded, not
+rebuilt, by the ranks), under ``build/chip_smoke_ddp/``. No figure here is a
+multi-GPU scaling figure.
+
+14. a. ``init_distributed(backend="nccl")`` and ``Trainer(devices=[0])``:
+       phase 7's fit (R50-FPN, seeded uint8 batches of 16 at 800x1344)
+       through ``DistributedDataParallel``: match launched 35 times (read
+       around this fit), the parameters against phase 7's bit for bit where
+       a second plain fit is, else within ``DDP_GAP_FACTOR`` of that pair's
+       gap (both printed); ``all_gather_objects`` and ``reduce_dict``
+       through NCCL; the DDP step against the plain step on an uploaded
+       batch, in turns, medians of 5;
+    b. two gloo ranks: the live BN layer on each rank's 8 rows of
+       ``LAYER_BN_SHAPE`` (f32 and bf16) against ``F.batch_norm`` in f64
+       over the 16: the output, input gradient, the summed weight and bias
+       gradients and the running statistics within ``BN_RTOL`` (bf16's
+       output and input gradient within ``BN_BF16_TOL``); the
+       ``match_mesh`` loss at phase 7's shapes equal to the unsplit
+       kernel's, targets and per-image losses, with 5 match launches a rank
+       in the split call; f32 resnet18 at 128x192, live BN, 2 SGD steps at
+       batch 2 a rank against one process over the batch of 4 (the layer
+       on its global-batch path there): losses within ``SMALL_LOSS_RTOL``, the first step's
+       updates within ``SMALL_UPDATE_RTOL`` of each tensor's largest (plus
+       2 ulp), running statistics within ``SMALL_STATS_RTOL``; then
+       R50-FPN bf16, live BN, ``FULL_STEPS`` steps at batch 8 a rank:
+       finite losses, match launched 5 times a step in each rank, the two
+       ranks' parameters and running statistics bit for bit, each rank's
+       peak memory and step ms;
+    c. ``Trainer.test`` merged across two gloo ranks on 12d's 96 JPEGs at
+       test_bs 32 a rank: stem (f32) and NMS launched once a batch in each
+       rank, the merged records and AP against 12d's one process (equal, or
+       JAX's multi-process bar: ``MERGED_OVERLAP`` and ``MERGED_AP_TOL``).
+
 The last lines are the ``kernels`` JSON, the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -255,12 +291,17 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+PROFILER_WINDOWS = 3
+
+
 def device_times(fn, iters: int = 10) -> dict:
     """``fn``'s calls back to back after a warm-up, timed twice: without the
     profiler, the CUDA-event ms per call and the host's us per call to
     enqueue them (no synchronize inside); then in one ``torch.profiler``
     window, each CUDA kernel's device us per call, by name, with its
-    launches per call. Fails the run if the window recorded no kernel."""
+    launches per call. A window that recorded no kernel at all (the card's
+    tracer now and then returns an empty one) is run again, up to
+    ``PROFILER_WINDOWS`` in all; the run fails if none recorded a kernel."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
@@ -275,18 +316,22 @@ def device_times(fn, iters: int = 10) -> dict:
     host_us = (time.perf_counter() - t0) * 1e6 / iters
     end.record()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     kernels = {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        m = re.search(r"(\w+_kernel)\b", e.name)
-        name = m.group(1) if m else e.name[:60]
-        us, n = kernels.get(name, (0.0, 0))
-        kernels[name] = (us + e.time_range.elapsed_us(), n + 1)
+    for window in range(PROFILER_WINDOWS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            m = re.search(r"(\w+_kernel)\b", e.name)
+            name = m.group(1) if m else e.name[:60]
+            us, n = kernels.get(name, (0.0, 0))
+            kernels[name] = (us + e.time_range.elapsed_us(), n + 1)
+        if kernels:
+            break
+        log(f"[trace] profiler window {window + 1} of {PROFILER_WINDOWS} recorded no CUDA kernel")
     if not kernels:
         raise SystemExit("the profiler recorded no CUDA kernel: device time not measured")
     # The profiler may drop an event of the window: the mean launch times the
@@ -731,9 +776,10 @@ def train_card_vs_cpu(Model, Trainer, ConfigDict, freeze_bn: bool = True):
             f"tensor's largest, worst {worst} {err[worst]:.2e}; all {len(err)} moved")
 
 
-def training_phases(dev, results) -> float:
+def training_phases(dev, results) -> tuple:
     """Phases 6-9: the match kernel, the training path and their times.
-    Returns phase 9's median step on an uploaded batch, in ms."""
+    Returns phase 9's median step on an uploaded batch, in ms, and phase
+    7's parameters after its fit (on the host)."""
     from pytorch_retinanet_tpu_torch import KERNELS, ConfigDict, RetinaNetModel, Trainer
     from pytorch_retinanet_tpu_torch.kernels import (
         match_targets, match_targets_plain, reset_launch_counts,
@@ -748,6 +794,7 @@ def training_phases(dev, results) -> float:
     Model = served_model(RetinaNetModel)
     model, trainer, n_match, train_peak = train_main_path(
         Model, Trainer, ConfigDict, reset_launch_counts, KERNELS)
+    fitted = {k: p.detach().cpu().clone() for k, p in model.net.module.named_parameters()}
     results["match_targets"]["launches"] = n_match
     train_card_vs_cpu(Model, Trainer, ConfigDict)
 
@@ -784,7 +831,7 @@ def training_phases(dev, results) -> float:
     log(f"[e2e] train step R50-FPN batch {TRAIN_BATCH} 800x1344 (forward, loss, backward, SGD): "
         f"median {step * 1e3:.1f} ms over 5 -> {TRAIN_BATCH / step:.1f} img/s; peak memory of "
         f"the fit {train_peak / 2**30:.1f} GiB")
-    return step * 1e3
+    return step * 1e3, fitted
 
 
 class SigtermLoader:
@@ -1205,16 +1252,22 @@ def check_evaluator_on_gt(coco: dict) -> None:
 def device_busy_share(fn) -> tuple:
     """``fn()`` once inside a ``torch.profiler`` window: (its result, wall
     seconds, the share of that wall the card spent in kernels and copies,
-    from the union of their intervals)."""
+    from the union of their intervals). A window that recorded nothing on
+    the card is run again, as in :func:`device_times`."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    for window in range(PROFILER_WINDOWS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if spans:
+            break
+        log(f"[trace] profiler window {window + 1} of {PROFILER_WINDOWS} recorded no CUDA "
+            "activity")
     if not spans:
         raise SystemExit("the profiler recorded no CUDA activity: idle share not measured")
     busy, end = 0.0, -float("inf")
@@ -1246,8 +1299,9 @@ def timed_loader(loader, blocked: list):
     return Timed()
 
 
-def data_test_phase(hp, coco: dict) -> None:
-    """12d: Trainer.test and Trainer.predict of R50-FPN on the val split."""
+def data_test_phase(hp, coco: dict) -> tuple:
+    """12d: Trainer.test and Trainer.predict of R50-FPN on the val split.
+    Returns the test's AP and its detection records."""
     from pytorch_retinanet_tpu_torch import RetinaNetModel, Trainer
     from pytorch_retinanet_tpu_torch.kernels import KERNELS, reset_launch_counts, stem_forward
 
@@ -1286,7 +1340,8 @@ def data_test_phase(hp, coco: dict) -> None:
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
-    ap = trainer.test(model)[0]["AP"]
+    tested = multihost_tool().test_with_records(trainer, model)
+    ap = tested["AP"]
     total_s = time.perf_counter() - t0
     launches = {k.name: k.wrapper.launches for k in KERNELS}
     stats = out["summarize"]["bbox"]
@@ -1328,6 +1383,7 @@ def data_test_phase(hp, coco: dict) -> None:
         f"{busy:.3f} of it (idle share {1 - busy:.3f}); blocked in next(loader) "
         f"{['%.1f' % (s * 1e3) for s in blocked]} ms, predict "
         f"{['%.1f' % (s * 1e3) for s in predict_s]} ms")
+    return ap, tested["records"]
 
 
 def data_fit_phase(dev, hp, step_ms: float) -> None:
@@ -1446,8 +1502,9 @@ def overfit_phase(root: str) -> None:
         raise SystemExit(f"the overfit reached AP {ap}, not above {OVERFIT['min_ap']}")
 
 
-def data_eval_phases(dev, step_ms: float) -> None:
-    """Phase 12: data and eval, from files on disk, at full width."""
+def data_eval_phases(dev, step_ms: float) -> tuple:
+    """Phase 12: data and eval, from files on disk, at full width. Returns
+    12d's config, AP and detection records, for phase 14c."""
     import shutil
 
     import cv2
@@ -1471,11 +1528,12 @@ def data_eval_phases(dev, step_ms: float) -> None:
         "dataloader": {"test_bs": TEST_BATCH, "args": {"num_workers": 8}},
         "transforms": [{"class_name": "albumentations.HorizontalFlip", "params": {"p": 0.5}}],
     })
-    data_test_phase(hp, coco["val"])
+    test_ref = data_test_phase(hp, coco["val"])
     torch.cuda.empty_cache()
     data_fit_phase(dev, hp, step_ms)
     torch.cuda.empty_cache()
     overfit_phase(os.path.join(root, "overfit"))
+    return (hp, *test_ref)
 
 
 def bottleneck_case(dev, b: int, h: int, w: int, mid: int, seed: int) -> list:
@@ -2008,6 +2066,462 @@ def export_serve_phases(dev) -> None:
     log(f"[export] phase 13 took {time.perf_counter() - t0:.1f} s")
 
 
+# Phase 14: data parallel. The card machine has one H100, so NCCL runs at
+# world size 1 there (NCCL refuses two ranks on one card); the cross-rank
+# checks run two gloo ranks that share the card. No figure of this phase
+# is a multi-GPU scaling figure.
+DDP_TIMEOUT = 600  # join timeout of each two-rank spawn, seconds
+# A DDP fit at world size 1 against phase 7's plain fit: bit for bit where a
+# second plain fit is; else its largest parameter gap (of each tensor's
+# update) may be this many times the plain pair's (cuDNN's backward is not
+# bit-reproducible from run to run).
+DDP_GAP_FACTOR = 4.0
+# 14b small: two ranks at batch 2 against one process over the batch of 4.
+SMALL_LOSS_RTOL, SMALL_UPDATE_RTOL, SMALL_STATS_RTOL = 1e-5, 1e-4, 1e-5
+SMALL_NET = {"backbone_kind": "resnet18", "num_classes": 90, "pretrained": False,
+             "min_size": 128, "max_size": 192, "compute_dtype": "float32", "prior": 0.1,
+             "freeze_bn": False}
+SMALL_OPTIMIZER = {"class_name": "torch.optim.SGD",
+                   "params": {"lr": 0.01, "weight_decay": 0.001, "momentum": 0.9}}
+# 14b layers: live BN on each rank's rows of this global batch (layer3.0.bn1's
+# shape at 800x1344, 8 rows a rank) against F.batch_norm in f64 over all of
+# it. f32: every tensor within BN_RTOL of its largest |value| (the CPU
+# test's bar). bf16: the output and input gradient within BN_BF16_TOL,
+# the f32 gradients and statistics within BN_RTOL.
+LAYER_BN_SHAPE = (16, 256, 100, 168)
+BN_RTOL = 1e-6
+BN_BF16_TOL = "1 bf16 ulp of the f64 value + BN_RTOL of the tensor's largest |value|"
+# 14b full width: R50-FPN, live BN, batch 8 a rank, this many steps.
+FULL_RANK_BATCH, FULL_STEPS = 8, 4
+# 14c, where the merged records are not equal to 12d's: the JAX package's
+# own multi-process bar (tools/multihost_smoke.py:23-25).
+MERGED_OVERLAP, MERGED_AP_TOL = 0.97, 2e-3
+
+
+def multihost_tool():
+    """``tools/torch_multihost_smoke.py`` (the rank spawner and its jobs)."""
+    tools = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import torch_multihost_smoke
+
+    return torch_multihost_smoke
+
+
+def synchronize(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def full_live_bn_job(rank: int, world: int, params: dict) -> dict:
+    """14b, each rank: R50-FPN live-BN bf16 steps on its rows of seeded
+    uint8 batches; launches, the state digest, the peak memory, step ms."""
+    mh = multihost_tool()
+    dev = torch.device(params["device"])
+    from pytorch_retinanet_tpu_torch import ConfigDict, RetinaNetModel, Trainer
+    from pytorch_retinanet_tpu_torch.kernels import KERNELS, reset_launch_counts
+
+    model = served_model(RetinaNetModel)(ConfigDict(params["hparams"]), device=params["device"])
+    batches = seeded_batches(params["steps"], params["batch"] * world, params["h"], params["w"],
+                             seed=14)
+    model.loader = [mh.rows_of(b, rank, world) for b in batches]
+    trainer = Trainer(devices=params["devices"], max_steps=params["steps"], warmup_steps=500,
+                      log_every_n_steps=1, num_sanity_val_steps=0, logger=False)
+    step_ms, train_step = [], trainer.train_step
+
+    def timed(batch):
+        synchronize(dev)
+        t0 = time.perf_counter()
+        out = train_step(batch)
+        synchronize(dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    trainer.train_step = timed
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    trainer.fit(model)
+    synchronize(dev)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else 0.0
+    out = {"losses": list(trainer.logger_.meters["loss"].window),
+           "digest": mh.state_digest(model.net.module),
+           "launches": {k.name: k.wrapper.launches for k in KERNELS},
+           "peak_gib": peak, "step_ms": step_ms}
+    out.update(gloo_collective_ms(model.net.module, dev))
+    return out
+
+
+def gloo_collective_ms(module, dev) -> dict:
+    """The step's collectives alone, on this group: one all-reduce of as
+    many f32 values as the module has parameters (DDP's gradient average,
+    which DDP issues in buckets during the backward), and one of a live BN
+    layer's f64 packet at 256 channels (each live BN layer issues three a
+    step), each a median of the ranks' host-clock timings."""
+    import torch.distributed as dist
+
+    from pytorch_retinanet_tpu_torch.models.layers import BatchNorm2d
+
+    def timed(t, reps):
+        times = []
+        for _ in range(reps):
+            dist.barrier()
+            synchronize(dev)
+            t0 = time.perf_counter()
+            dist.all_reduce(t)
+            synchronize(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    n = sum(p.numel() for p in module.parameters())
+    return {"grads_ms": timed(torch.zeros(n, device=dev), 3),
+            "bn_packet_ms": timed(torch.zeros(2 * 256 + 1, dtype=torch.float64, device=dev), 30),
+            "n_params": n,
+            "n_live_bn": sum(isinstance(m, BatchNorm2d) and not m.frozen for m in module.modules())}
+
+
+def join_ranks(what: str, run) -> list:
+    """The ranks' results; a failed or timed-out rank fails the phase."""
+    out = run.join()
+    if out["timed_out"] or any(c != 0 for c in out["exitcodes"]):
+        errors = [r.get("traceback") if r else None for r in out["results"]]
+        raise SystemExit(f"[ddp] {what}: exit codes {out['exitcodes']}, timed out "
+                         f"{out['timed_out']} (join timeout {run.timeout} s); {errors}")
+    log(f"[ddp] {what}: {len(out['results'])} ranks joined in {out['seconds']:.1f} s")
+    return out["results"]
+
+
+def params_gap(got: dict, want: dict, before: dict) -> tuple:
+    """(bit for bit, the largest max|got - want| over max|want - before|)."""
+    exact = all(torch.equal(got[k].cpu(), want[k].cpu()) for k in want)
+    worst = max(float((got[k].cpu() - want[k].cpu()).abs().max())
+                / max(float((want[k].cpu() - before[k].cpu()).abs().max()), 1e-30) for k in want)
+    return exact, worst
+
+
+def nccl_world_one(dev, fitted7: dict) -> None:
+    """14a: the DDP fit through NCCL at world size 1, at phase 7's shapes."""
+    import torch.distributed as dist
+    from torch.nn.parallel import DistributedDataParallel
+
+    from pytorch_retinanet_tpu_torch import ConfigDict, RetinaNetModel, Trainer, parallel
+    from pytorch_retinanet_tpu_torch.engine.trainer import _NO_BUFFER_SYNC
+    from pytorch_retinanet_tpu_torch.kernels import KERNELS, reset_launch_counts
+
+    Model = served_model(RetinaNetModel)
+
+    def fit7(**kw):
+        model = Model(ConfigDict(HPARAMS))
+        model.loader = seeded_batches(TRAIN_STEPS, TRAIN_BATCH, H, W, seed=7)
+        trainer = Trainer(max_steps=TRAIN_STEPS, warmup_steps=500, gradient_clip_val=None,
+                          log_every_n_steps=1, **kw)
+        synchronize(dev)
+        reset_launch_counts()
+        trainer.fit(model)
+        synchronize(dev)
+        params = {k: p.detach() for k, p in model.net.module.named_parameters()}
+        return model, trainer, params, {k.name: k.wrapper.launches for k in KERNELS}
+
+    before = {k: p.detach() for k, p in
+              Model(ConfigDict(HPARAMS), device="cpu").net.module.named_parameters()}
+    plain, plain_t, plain_params, _ = fit7()
+    plain_exact, plain_gap = params_gap(plain_params, fitted7, before)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    parallel.init_distributed(backend=backend)
+    try:
+        if dist.get_backend() != backend or parallel.get_world_size() != 1:
+            raise SystemExit(f"[ddp] want a {backend} group of 1, got {dist.get_backend()} of "
+                             f"{parallel.get_world_size()}")
+        ddp, ddp_t, ddp_params, launches = fit7(devices=[dev.index or 0] if dev.type == "cuda"
+                                                else ["cpu"])
+        losses = ddp_t.logger_.meters["loss"].window
+        if launches["match_targets"] != 5 * TRAIN_STEPS or ddp_t.global_step != TRAIN_STEPS \
+                or not np.isfinite(losses).all():
+            raise SystemExit(f"[ddp] NCCL fit: {ddp_t.global_step} steps, losses {losses}, "
+                             f"launches {launches}")
+        ddp_exact, ddp_gap = params_gap(ddp_params, fitted7, before)
+        log(f"[ddp] 14a NCCL, world size 1: R50-FPN {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+            f"800x1344 uint8 through DistributedDataParallel; launches {launches}; losses "
+            f"{['%.5f' % v for v in losses]}; parameters against phase 7's plain fit: DDP "
+            f"{'bit for bit' if ddp_exact else 'gap %.3e' % ddp_gap}, a second plain fit "
+            f"{'bit for bit' if plain_exact else 'gap %.3e' % plain_gap} (largest |difference| "
+            "of each tensor's update)")
+        if (plain_exact and not ddp_exact) or ddp_gap > DDP_GAP_FACTOR * plain_gap:
+            raise SystemExit(f"[ddp] the NCCL fit's parameters are {ddp_gap:.3e} from phase "
+                             f"7's, the plain pair's {plain_gap:.3e} (factor {DDP_GAP_FACTOR})")
+        obj = {"rank": parallel.get_rank(), "x": list(range(5))}
+        gathered = parallel.all_gather_objects(obj)
+        reduced = parallel.reduce_dict({"loss": torch.tensor([1.0, 3.0], device=dev)})
+        if gathered != [obj] or reduced != {"loss": 2.0}:
+            raise SystemExit(f"[ddp] NCCL collectives: gathered {gathered}, reduced {reduced}")
+        log(f"[ddp] all_gather_objects and reduce_dict through NCCL: {gathered}, {reduced}")
+
+        # The step on an uploaded batch, DDP against plain, in turns.
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in ddp.loader[0].items()}
+        ddp_t._ddp = DistributedDataParallel(
+            ddp.net.module, device_ids=[dev.index or 0] if dev.type == "cuda" else None,
+            process_group=dist.group.WORLD, **_NO_BUFFER_SYNC)
+        times = {"plain": [], "ddp": []}
+        for arm in ("plain", "ddp", "ddp", "plain"):
+            t = plain_t if arm == "plain" else ddp_t
+            for _ in range(5):
+                synchronize(dev)
+                t0 = time.perf_counter()
+                t.train_step(batch)
+                synchronize(dev)
+                times[arm].append((time.perf_counter() - t0) * 1e3)
+        ddp_t._ddp = None
+        med = {k: float(np.median(v)) for k, v in times.items()}
+        log(f"[time] 14a train step R50-FPN batch {TRAIN_BATCH} 800x1344 on an uploaded batch, "
+            f"turns plain, DDP, DDP, plain of 5 (host clock): DDP (NCCL, world size 1) median "
+            f"{med['ddp']:.1f} ms against plain {med['plain']:.1f} ms "
+            f"({(med['ddp'] / med['plain'] - 1) * 100:+.1f}%); DDP "
+            f"{['%.1f' % v for v in times['ddp']]}, plain {['%.1f' % v for v in times['plain']]}")
+    finally:
+        dist.destroy_process_group()
+
+
+def small_ranks_vs_one_process(dev, work: str, devices: list) -> None:
+    """14b small: two gloo ranks of the f32 live-BN step against one process."""
+    mh = multihost_tool()
+    state = mh.seeded_state(SMALL_NET, seed=3)
+    rng = np.random.default_rng(8)
+    batches = []
+    for n_valid in ([5, 0, 3, 1], [2, 4, 0, 6]):
+        boxes, labels, valid = seeded_gt(rng, n_valid, 128, 192)
+        batches.append({"images": rng.random((4, 128, 192, 3), dtype=np.float32),
+                        "boxes": boxes, "labels": labels, "valid": valid})
+    os.makedirs(work, exist_ok=True)
+    torch.save({"batches": batches, "state": state}, os.path.join(work, "small_data.pt"))
+    run = {"model": SMALL_NET, "optimizer": SMALL_OPTIMIZER, "trainer": {"max_steps": 2},
+           "save_last": True}
+    ranks = join_ranks("14b small (f32 resnet18, live BN)", mh.RankRun(
+        mh.job_train, {"data": os.path.join(work, "small_data.pt"), "runs": {"small": run},
+                       "device": dev.type, "devices": devices},
+        timeout=DDP_TIMEOUT, workdir=os.path.join(work, "small")))
+    # One process over the batch of 4, the layer on its global-batch path
+    # (its all-reduces the identity): the same arithmetic as the ranks'.
+    # 14b layers holds that path to F.batch_norm.
+    c = mh.train_against_one_process(os.path.join(work, "small"), "small", run, batches, state,
+                                     ranks, dev.type, SMALL_LOSS_RTOL, SMALL_UPDATE_RTOL)
+    log(f"[ddp] 14b small: 2 gloo ranks x 2 rows (one card) against one process x 4 rows, f32 "
+        f"resnet18 128x192 live BN, 2 SGD steps: losses {c['losses']} vs {c['single']} (worst "
+        f"{c['loss_rel_err']:.2e} rel, limit {SMALL_LOSS_RTOL}); first step's update gap "
+        f"{c['update_gap_of_bound']:.3f} of the bound ({SMALL_UPDATE_RTOL} of the tensor's "
+        f"largest update + 2 ulp) at {c['worst_tensor']}; running statistics after both steps "
+        f"within {c['stats_rel_err']:.2e} rel (limit {SMALL_STATS_RTOL}); ranks bit for bit "
+        f"{c['ranks_bit_for_bit']}")
+    if not c["loss_ok"] or c["update_gap_of_bound"] > 1.0 \
+            or c["stats_rel_err"] > SMALL_STATS_RTOL or not c["ranks_bit_for_bit"]:
+        raise SystemExit("[ddp] 14b small: two ranks differ from one process or each other")
+
+
+def layer_checks_job(rank: int, world: int, params: dict) -> dict:
+    """14b layers, each rank: live BN on its rows against F.batch_norm in
+    f64 over the global batch (the errors, see BN_RTOL), and the match_mesh
+    loss at phase 7's shapes against the unsplit kernel's, with the match
+    launches of the split call."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from pytorch_retinanet_tpu_torch import parallel
+    from pytorch_retinanet_tpu_torch.kernels import KERNELS, match_targets, reset_launch_counts
+    from pytorch_retinanet_tpu_torch.models.layers import BatchNorm2d
+    from pytorch_retinanet_tpu_torch.ops import generate_anchors_per_level, retinanet_loss_levels
+    from pytorch_retinanet_tpu_torch.ops.losses import _split_over_ranks
+
+    mh = multihost_tool()
+    dev = torch.device(params["device"], params["devices"][rank]) \
+        if params["device"] == "cuda" else torch.device("cpu")
+    shape = tuple(params["bn_shape"])
+    b, c = shape[:2]
+    rows = slice(rank * b // world, (rank + 1) * b // world)
+    out = {"bn": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device=dev).manual_seed(21)
+        x = (torch.randn(shape, generator=g, device=dev) * 3.0 + 1.0).to(dtype)
+        w_out = torch.randn(shape, generator=g, device=dev).to(dtype)
+        state = {"weight": torch.rand(c, generator=g, device=dev) + 0.5,
+                 "bias": torch.randn(c, generator=g, device=dev) * 0.5,
+                 "running_mean": torch.randn(c, generator=g, device=dev) * 0.1,
+                 "running_var": torch.rand(c, generator=g, device=dev) + 0.5}
+        got = mh.live_bn_rows(x, w_out, state, rank, world)
+        for k in ("weight_grad", "bias_grad"):  # DDP averages them: their sum is the batch's
+            dist.all_reduce(got[k])
+        x64 = x.double().requires_grad_(True)
+        weight, bias = (state[k].double().requires_grad_(True) for k in ("weight", "bias"))
+        y64 = F.batch_norm(x64, None, None, weight, bias, True, 0.0,
+                           BatchNorm2d(c, frozen=False).eps)
+        (y64 * w_out.double()).sum().backward()
+        m = BatchNorm2d.momentum
+        want = {"y": y64.detach()[rows], "x_grad": x64.grad[rows], "weight_grad": weight.grad,
+                "bias_grad": bias.grad,
+                "running_mean": m * state["running_mean"].double()
+                + (1 - m) * x64.detach().mean((0, 2, 3)),
+                "running_var": m * state["running_var"].double()
+                + (1 - m) * x64.detach().var((0, 2, 3), correction=0)}
+        errs = {}
+        for k, w in want.items():
+            diff = (got[k].double() - w).abs()
+            top = float(w.abs().max())
+            errs[k] = float(diff.max()) / top
+            if dtype == torch.bfloat16 and k in ("y", "x_grad"):
+                bound = bf16_ulp(w).double() + BN_RTOL * top
+                errs[k + "_outside"] = int((diff > bound).sum())
+        errs["num_batches_tracked"] = got["num_batches_tracked"]
+        out["bn"][str(dtype).split(".")[-1]] = errs
+        del x, w_out, got, x64, y64, want
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # match_mesh at phase 7's shapes: every rank holds the global batch.
+    gt = seeded_batches(1, params["batch"], params["h"], params["w"], seed=7)[0]
+    anchors = [torch.from_numpy(a).to(dev) for a in generate_anchors_per_level(
+        (params["h"], params["w"]))]
+    boxes = torch.from_numpy(gt["boxes"]).to(dev)
+    labels = torch.from_numpy(gt["labels"]).to(dev, torch.int32)
+    valid = torch.from_numpy(gt["valid"]).to(dev).bool()
+    g = torch.Generator(device=dev).manual_seed(5)
+    cls = [torch.randn((params["batch"], a.shape[0], 90), generator=g, device=dev)
+           for a in anchors]
+    box = [torch.randn((params["batch"], a.shape[0], 4), generator=g, device=dev) for a in anchors]
+    plan = parallel.make_mesh(params["devices"])
+    kw = dict(num_classes=90, reduction="none")
+    synchronize(dev)
+    reset_launch_counts()
+    split = retinanet_loss_levels(cls, box, anchors, boxes, labels, valid, match_mesh=plan, **kw)
+    synchronize(dev)
+    launches = {k.name: k.wrapper.launches for k in KERNELS}
+    unsplit = retinanet_loss_levels(cls, box, anchors, boxes, labels, valid, **kw)
+    args = (0.5, 0.4, (1.0, 1.0, 1.0, 1.0))
+    split_match = _split_over_ranks(match_targets, dist.group.WORLD)
+    targets_equal = all(torch.equal(p, q)
+                        for a in anchors
+                        for p, q in zip(split_match(a, boxes, labels, valid, *args),
+                                        match_targets(a, boxes, labels, valid, *args)))
+    out["match"] = {"launches": launches, "targets_equal": targets_equal,
+                    "losses_equal": all(torch.equal(split[k], unsplit[k]) for k in unsplit),
+                    "finite": all(bool(torch.isfinite(v).all()) for v in split.values()),
+                    "n_valid_gt": int(valid.sum())}
+    return out
+
+
+def layer_checks(dev, work: str, devices: list) -> None:
+    """14b layers: the synced live BN layer and the match_mesh split on two
+    gloo ranks on the card (:func:`layer_checks_job`)."""
+    mh = multihost_tool()
+    out = join_ranks("14b layers (live BN rows, match_mesh)", mh.RankRun(
+        layer_checks_job, {"device": dev.type, "devices": devices, "bn_shape": LAYER_BN_SHAPE,
+                           "batch": TRAIN_BATCH, "h": H, "w": W},
+        timeout=DDP_TIMEOUT, workdir=os.path.join(work, "layers")))
+    bad = []
+    for r, o in enumerate(out):
+        for dtype, errs in o["bn"].items():
+            log(f"[ddp] 14b layers rank {r}: live BN {dtype} on rows of {LAYER_BN_SHAPE} against "
+                f"F.batch_norm f64 over the global batch, max |diff| of each tensor's largest: "
+                + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()
+                            if k.endswith(("_grad", "y", "_mean", "_var")))
+                + (f"; bf16 outside {BN_BF16_TOL}: y {errs['y_outside']}, x_grad "
+                   f"{errs['x_grad_outside']}" if "y_outside" in errs else ""))
+            limited = [k for k in errs if k.endswith(("_grad", "y", "_mean", "_var"))
+                       and not (dtype == "bfloat16" and k in ("y", "x_grad"))]
+            if any(errs[k] > BN_RTOL for k in limited) or errs.get("y_outside", 0) \
+                    or errs.get("x_grad_outside", 0) or errs["num_batches_tracked"] != 1:
+                bad.append(f"rank {r} BN {dtype}")
+        mm = o["match"]
+        log(f"[ddp] 14b layers rank {r}: match_mesh loss at {TRAIN_BATCH} x {H}x{W}, 5 levels, "
+            f"{mm['n_valid_gt']} valid GT rows: equal to the unsplit kernel's "
+            f"{mm['losses_equal']}, targets equal {mm['targets_equal']}; launches of the split "
+            f"call {mm['launches']}")
+        if not (mm["losses_equal"] and mm["targets_equal"] and mm["finite"]) \
+                or mm["launches"]["match_targets"] != 5:
+            bad.append(f"rank {r} match_mesh")
+    if bad:
+        raise SystemExit(f"[ddp] 14b layers: {bad}")
+
+
+def ddp_phases(dev, fitted7: dict, test_ref: tuple) -> None:
+    """Phase 14: the DDP fit through NCCL at world size 1 (14a), two gloo
+    ranks on the one card against one process and each other (14b), and
+    the merged ``Trainer.test`` on two gloo ranks (14c)."""
+    t_phase = time.perf_counter()
+    mh = multihost_tool()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_ddp")
+    import shutil
+
+    shutil.rmtree(work, ignore_errors=True)
+    nccl_world_one(dev, fitted7)
+    torch.cuda.empty_cache()
+    rank_devices = [dev.index or 0] * 2 if dev.type == "cuda" else ["cpu"] * 2
+
+    layer_checks(dev, work, rank_devices)
+    small_ranks_vs_one_process(dev, work, rank_devices)
+    torch.cuda.empty_cache()
+
+    live = merged_conf(HPARAMS, {"model": {"freeze_bn": False}})
+    out = join_ranks("14b full width (R50-FPN bf16, live BN)", mh.RankRun(
+        full_live_bn_job, {"hparams": live, "device": dev.type, "devices": rank_devices,
+                           "batch": FULL_RANK_BATCH, "steps": FULL_STEPS, "h": H, "w": W},
+        timeout=DDP_TIMEOUT, workdir=os.path.join(work, "full")))
+    for r, o in enumerate(out):
+        log(f"[ddp] 14b full rank {r}: losses {['%.5f' % v for v in o['losses']]}; launches "
+            f"{o['launches']}; peak memory {o['peak_gib']:.2f} GiB; step ms "
+            f"{['%.1f' % v for v in o['step_ms']]}")
+    if any(not np.isfinite(o["losses"]).all() or o["launches"]["match_targets"] != 5 * FULL_STEPS
+           for o in out) or out[0]["digest"] != out[1]["digest"]:
+        raise SystemExit("[ddp] 14b full width: non-finite losses, missing match launches, or "
+                         "the ranks' parameters and running statistics differ")
+    o = out[0]
+    log(f"[time] 14b R50-FPN live BN, 2 gloo ranks x {FULL_RANK_BATCH} sharing one card "
+        f"(not a scaling figure): step median {np.median([v for o in out for v in o['step_ms'][1:]]):.1f} "
+        f"ms (steps 2-{FULL_STEPS}, both ranks); the ranks' state bit for bit; the collectives "
+        f"alone (rank 0, host clock): gloo all-reduce of the {o['n_params']} f32 gradients "
+        f"{o['grads_ms']:.1f} ms, one BN packet {o['bn_packet_ms']:.3f} ms x 3 x "
+        f"{o['n_live_bn']} live BN layers = {3 * o['n_live_bn'] * o['bn_packet_ms']:.1f} ms a step")
+    torch.cuda.empty_cache()
+
+    hp, ap_ref, records_ref = test_ref
+    hp = merged_conf(hp, {"dataloader": {"args": {"num_workers": 4}}})
+    out = join_ranks("14c merged Trainer.test", mh.RankRun(
+        mh.job_eval, {"conf": hp, "device": dev.type, "devices": rank_devices, "warm": True,
+                      "validate": False},
+        timeout=DDP_TIMEOUT, workdir=os.path.join(work, "test")))
+    for r, o in enumerate(out):
+        if o["launches"]["fused_stem"] != o["n_batches"] \
+                or o["launches"]["nms_keep_mask"] != o["n_batches"] \
+                or o["stem_dtype"] != "torch.float32":
+            raise SystemExit(f"[ddp] 14c rank {r}: {o['n_batches']} batches launched "
+                             f"{o['launches']}, the stem on {o['stem_dtype']}")
+        log(f"[ddp] 14c rank {r}: {o['n_batches']} batches of {TEST_BATCH}, launches "
+            f"{o['launches']}, Trainer.test {o['seconds']:.2f} s, AP {o['AP']:.6f}")
+    r0, r1 = out
+    if r0["AP"] != r1["AP"] or r0["records"] != r1["records"]:
+        raise SystemExit("[ddp] 14c: the ranks' merged results differ")
+    exact = sorted(r0["records"], key=record_key) == sorted(records_ref, key=record_key)
+    overlap = mh.records_overlap(r0["records"], records_ref)
+    log(f"[ddp] 14c merged Trainer.test on 2 gloo ranks against 12d's one process: "
+        f"{len(r0['records'])} vs {len(records_ref)} records, "
+        f"{'equal' if exact else 'overlap %.4f' % overlap}; AP {r0['AP']:.6f} vs {ap_ref:.6f} "
+        f"(delta {abs(r0['AP'] - ap_ref):.2e})")
+    if not exact and (overlap < MERGED_OVERLAP or abs(r0["AP"] - ap_ref) > MERGED_AP_TOL):
+        raise SystemExit(f"[ddp] 14c: record overlap {overlap} (bar {MERGED_OVERLAP}), AP delta "
+                         f"{abs(r0['AP'] - ap_ref)} (bar {MERGED_AP_TOL})")
+    shutil.rmtree(work, ignore_errors=True)  # the saved states
+    log(f"[ddp] phase 14 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def record_key(r: dict) -> tuple:
+    return (r["image_id"], -r["score"], r["category_id"], tuple(r["bbox"]))
+
+
+def merged_conf(base: dict, update: dict) -> dict:
+    """`base` with `update` merged in, as plain dicts (they travel to the ranks)."""
+    from pytorch_retinanet_tpu_torch import ConfigDict
+
+    return ConfigDict(base).merge(update).to_dict()
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card only",
@@ -2234,16 +2748,18 @@ def main() -> int:
     del net, batch
     torch.cuda.empty_cache()
 
-    step_ms = training_phases(dev, results)
+    step_ms, fitted7 = training_phases(dev, results)
     torch.cuda.empty_cache()
 
     work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_engine")
     engine_main_path(dev, results, images, work)
     live_bn_phases(dev)
     torch.cuda.empty_cache()
-    data_eval_phases(dev, step_ms)
+    test_ref = data_eval_phases(dev, step_ms)
     torch.cuda.empty_cache()
     export_serve_phases(dev)
+    torch.cuda.empty_cache()
+    ddp_phases(dev, fitted7, test_ref)
 
     log(json.dumps({"kernels": [results[k.name] for k in KERNELS]}))
     print(smi)

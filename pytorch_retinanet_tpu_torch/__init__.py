@@ -6,8 +6,10 @@ the ``Trainer``) run on CUDA with hand-written kernels for the fused stem,
 greedy NMS, the loss's anchor matching, the fused identity bottleneck and
 the per-row top-2 classes (``kernels``); everything else is plain PyTorch on
 cuDNN. ``export`` records the inference program as one ``torch.export``
-artifact per bucket, the stem and NMS kernels kept as custom ops. The
-package imports neither JAX nor the JAX package.
+artifact per bucket, the stem and NMS kernels kept as custom ops.
+``parallel`` runs the Trainer data-parallel on ``torch.distributed`` (NCCL
+on the card, gloo on the CPU). The package imports neither JAX nor the JAX
+package.
 
 The reference's surface::
 
@@ -16,7 +18,7 @@ The reference's surface::
     Trainer(max_epochs=10, checkpoint_dir="checkpoints").fit(RetinaNetModel(conf))
 """
 
-from . import config, data, engine, kernels, models, ops, utils
+from . import config, data, engine, kernels, models, ops, parallel, utils
 from .config import ConfigDict, OmegaConf, default_hparams, ifnone, load_config
 from .engine import RetinaNetModel, Trainer
 from .kernels import KERNELS
@@ -48,5 +50,6 @@ __all__ = [
     "load_config",
     "models",
     "ops",
+    "parallel",
     "utils",
 ]

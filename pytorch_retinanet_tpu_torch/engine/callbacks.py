@@ -5,7 +5,10 @@ knobs of the pytorch-lightning 1.0 callbacks the reference uses. The
 Trainer calls ``on_epoch_end(trainer, metrics)`` after each completed epoch
 (validation and the epoch's scheduler step included) and ``on_train_end``
 once ``fit`` ends. An experiment logger (``CSVLogger``,
-``TensorBoardLogger``) is passed as ``Trainer(logger=...)``.
+``TensorBoardLogger``) is passed as ``Trainer(logger=...)``. In a process
+group the Trainer calls the experiment loggers on rank 0 only, and its
+``save_checkpoint`` writes on rank 0 only; the other callbacks run on
+every rank.
 """
 
 from __future__ import annotations
@@ -75,7 +78,6 @@ class ModelCheckpoint(Callback):
         self.best_path: Optional[str] = None
 
     def on_epoch_end(self, trainer, metrics: Dict[str, float]) -> None:
-        os.makedirs(self.dirpath, exist_ok=True)
         if self.save_last:
             trainer.save_checkpoint(os.path.join(self.dirpath, "last"))
         value = metrics.get(self.monitor) if self.monitor else None

@@ -1,4 +1,4 @@
-"""Trainer: the fit loop, validation, checkpoints and the step functions, single process.
+"""Trainer: the fit loop, validation, checkpoints and the step functions.
 
 Counterpart of ``pytorch_retinanet_tpu/engine/trainer.py`` (a
 ``pytorch_lightning.Trainer`` 1.0 look-alike) with the same loop design and
@@ -35,12 +35,27 @@ Both run ``Retinanet._predict_impl`` on the uploaded batch (the fused stem
 and the NMS kernel on CUDA) and drop the ``batch_mask`` padding rows.
 Batches in pinned memory upload with ``non_blocking=True``.
 
-Not ported yet: ``mesh`` / ``devices`` (ROADMAP A9), which raise
-``NotImplementedError``.
+Data parallel: in a process group (``parallel.init_distributed``, or
+torchrun's), ``fit`` wraps the module in ``DistributedDataParallel`` over
+the group (``mesh`` / ``devices``, as ``parallel.make_mesh`` takes them,
+name each rank's device and must hold the model) and every loader is the
+rank's shard (``shard=rank``, ``num_shards=world``; batch sizes are per
+rank, as JAX's are per host). Live batch norm normalizes with the global
+batch's statistics (``models/layers.py``), so buffers are not broadcast.
+The micro-batches of an accumulation window but its last run under
+``no_sync``. The logged step metrics go through ``reduce_dict``, so every
+rank sees the same (finite or not) values; the interrupt flag and
+``should_stop`` are agreed across ranks at each step boundary. Validation
+totals and test detections merge through ``all_gather_objects``, and every
+rank gets the same metrics and AP. Rank 0 alone writes checkpoints and
+logs, and every rank waits for the save; every rank reads a resume.
+``predict`` is not sharded: each rank predicts the whole loader, as in JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
+import inspect
 import logging
 import os
 import signal
@@ -50,11 +65,24 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from ..ops import retinanet_loss_levels
+from ..parallel import (
+    MeshPlan,
+    all_gather_objects,
+    any_rank,
+    average_gradients,
+    get_rank,
+    get_world_size,
+    is_main_process,
+    make_mesh,
+    reduce_dict,
+)
 from ..ops.boxes import rescale_boxes
 from ..utils.metrics import MetricLogger, ProfilerHook, device_memory_stats
-from .callbacks import Callback, ModelCheckpoint
+from .callbacks import Callback, ModelCheckpoint, _ExperimentLogger
 from .model import RetinaNetModel
 from .optim import (
     GradientAccumulation,
@@ -72,6 +100,12 @@ Tensor = torch.Tensor
 
 CHECKPOINT_FILE = "checkpoint.pt"
 
+# DDP's switch for the buffer broadcast before each forward: renamed
+# ``forward_sync_buffers`` in newer torch.
+_NO_BUFFER_SYNC = ({"forward_sync_buffers": False}
+                   if "forward_sync_buffers" in inspect.signature(DistributedDataParallel).parameters
+                   else {"broadcast_buffers": False})
+
 
 class Trainer:
     """``Trainer(...).fit(model)`` and ``.validate(model)``.
@@ -79,7 +113,10 @@ class Trainer:
     Accepts and ignores the torch-specific ``gpus`` and ``precision``: the
     device is the model's, and the compute dtype is the model's. ``logger``
     takes an experiment logger callback (``CSVLogger``,
-    ``TensorBoardLogger``); True, False and None mean none.
+    ``TensorBoardLogger``); True, False and None mean none. ``mesh`` (a
+    ``parallel.MeshPlan``) or ``devices`` (one per rank, for
+    ``parallel.make_mesh``) name this rank's device, which must be the
+    model's; without either, a process group's run uses the model's device.
     """
 
     def __init__(
@@ -118,10 +155,8 @@ class Trainer:
                 "effect (gpus/precision are absorbed by design).",
                 UserWarning, stacklevel=2,
             )
-        for name, value in (("mesh", mesh), ("devices", devices)):
-            if value:
-                raise NotImplementedError(
-                    f"Trainer({name}=...) is ROADMAP A9 (distributed): not ported yet")
+        self.mesh: Optional[MeshPlan] = mesh if mesh is not None else (
+            make_mesh(devices) if devices else None)
         # fast_dev_run=n: one epoch of n train, n val and n test batches, no
         # sanity check, no checkpointing and no experiment logger (Lightning 1.0).
         if fast_dev_run:
@@ -175,6 +210,7 @@ class Trainer:
         self._sched_lr = 0.0
         self._warmup_eff = warmup_steps
         self._model: Optional[RetinaNetModel] = None
+        self._ddp: Optional[DistributedDataParallel] = None
         self._optimizer = None
         self._scheduler = None
         self._sched_meta: Dict[str, Any] = {}
@@ -223,10 +259,12 @@ class Trainer:
     def _device_batch(self, batch: Dict[str, Any]) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
         return self._upload(batch, "images", "boxes", "labels", "valid")
 
-    def _losses(self, batch: Dict[str, Any], reduction: str) -> Dict[str, Tensor]:
+    def _losses(self, batch: Dict[str, Any], reduction: str, forward=None) -> Dict[str, Tensor]:
+        """The batch's losses through `forward` (the module, or its DDP
+        wrapper, whose forward arms the gradient all-reduce)."""
         net = self._model.net
         images, boxes, labels, valid = self._device_batch(batch)
-        cls_levels, box_levels = net.module(images, return_levels=True)
+        cls_levels, box_levels = (forward or net.module)(images, return_levels=True)
         losses = retinanet_loss_levels(
             cls_levels, box_levels, net._anchors_for(tuple(images.shape[1:3])),
             boxes, labels, valid, num_classes=net.num_classes, reduction=reduction,
@@ -237,10 +275,15 @@ class Trainer:
     def train_step(self, batch: Dict[str, Any]) -> Dict[str, Tensor]:
         """Forward (training mode), loss, backward and (at a window's end)
         the optimizer step on one batch; returns the losses, detached, on
-        the device."""
+        the device. Under DDP, a micro-batch that does not close its
+        accumulation window runs under ``no_sync``."""
         self._model.net.module.train()
-        losses = self._losses(batch, "mean")
-        losses["loss"].backward()
+        opt = self._optimizer
+        sync = not (self._ddp is not None and isinstance(opt, GradientAccumulation)
+                    and opt.mini_step + 1 < opt.every)
+        with contextlib.nullcontext() if sync else self._ddp.no_sync():
+            losses = self._losses(batch, "mean", self._ddp)
+            losses["loss"].backward()
         if isinstance(self._optimizer, GradientAccumulation):
             self._optimizer.step()
         else:
@@ -266,9 +309,17 @@ class Trainer:
         one, unless an interrupt save passes the interrupted epoch so that
         the resume re-runs it), ``global_step``, the pre-warmup LR and the
         scheduler's versioned state. A temporary file is renamed into place,
-        so an interrupted save leaves the previous checkpoint whole."""
+        so an interrupted save leaves the previous checkpoint whole. In a
+        process group every rank calls it: rank 0 writes, and all wait for
+        the write."""
         if self._model is None:
             return
+        if is_main_process():
+            self._write_checkpoint(path, completed_epochs)
+        if get_world_size() > 1:
+            dist.barrier()
+
+    def _write_checkpoint(self, path: str, completed_epochs: Optional[int]) -> None:
         ckpt = {
             "module": self._model.net.module.state_dict(),
             "optimizer": self._optimizer.state_dict(),
@@ -310,10 +361,29 @@ class Trainer:
     # ------------------------------------------------------------------ #
     # Loops
     # ------------------------------------------------------------------ #
+    def _data_parallel(self, model: RetinaNetModel) -> Optional[MeshPlan]:
+        """This rank's plan when a process group is up (None without one),
+        checked against the device the model's parameters are on."""
+        plan = self.mesh
+        if plan is None and dist.is_initialized():
+            plan = make_mesh([model.net.device] * get_world_size())
+        if plan is None:
+            return None
+        held = next(model.net.module.parameters()).device
+        if held != plan.device:
+            raise ValueError(f"Trainer: this rank's device is {plan.device}, the model's "
+                             f"parameters are on {held}; build the model on the rank's device")
+        return plan if plan.group is not None else None
+
+    def _shard(self) -> Dict[str, int]:
+        return {"shard": get_rank(), "num_shards": get_world_size()}
+
     def fit(self, model: RetinaNetModel) -> Dict[str, float]:
         """Train: ``max_epochs`` epochs or ``max_steps`` optimizer steps."""
         self._model = model
-        if self.logger is not None and getattr(model, "hparams", None) is not None:
+        plan = self._data_parallel(model)
+        if (self.logger in self._rank_callbacks()
+                and getattr(model, "hparams", None) is not None):
             self.logger.log_hyperparams(model.hparams)
         model.prepare_data()
         self._optimizer, self._scheduler, self._sched_meta = model.configure_optimizers()
@@ -339,8 +409,15 @@ class Trainer:
         if resume_path:
             self.restore_checkpoint(resume_path)
         self.current_lr = current_learning_rate(self._optimizer)
+        if plan is not None:
+            # Live BN reduces its statistics over the group and frozen BN's
+            # buffers are constant: nothing to broadcast before a forward.
+            dev = plan.device
+            self._ddp = DistributedDataParallel(
+                model.net.module, device_ids=[dev.index] if dev.type == "cuda" else None,
+                process_group=plan.group, **_NO_BUFFER_SYNC)
 
-        train_loader = model.train_dataloader()
+        train_loader = model.train_dataloader(**self._shard())
         if self.overfit_batches and hasattr(train_loader, "shuffle"):
             train_loader.shuffle = False
         limit = self._resolve_limit(self.overfit_batches or self.limit_train_batches,
@@ -365,14 +442,22 @@ class Trainer:
         try:
             self._fit_loop(model, train_loader, metrics)
         finally:
+            self._ddp = None
             for sig, prev in installed.items():
                 signal.signal(sig, prev)
             # The trace of the steps before a failure is the one most wanted.
             self.profiler.close()
             model.net.module.eval()
-        for cb in self.callbacks:
+        for cb in self._rank_callbacks():
             cb.on_train_end(self)
         return metrics
+
+    def _rank_callbacks(self) -> List[Callback]:
+        """The callbacks this rank runs: all of them on rank 0, all but the
+        experiment loggers (which write files) on the others."""
+        if is_main_process():
+            return self.callbacks
+        return [c for c in self.callbacks if not isinstance(c, _ExperimentLogger)]
 
     def _install_interrupt_handlers(self) -> Dict[Any, Any]:
         """SIGTERM / SIGINT set a flag the loop reads at the next step
@@ -406,7 +491,7 @@ class Trainer:
     def _sanity_check(self, model: RetinaNetModel) -> None:
         """Run a few validation batches before training, outputs discarded,
         so that a broken validation path fails at once."""
-        loader = model.val_dataloader()
+        loader = model.val_dataloader(**self._shard())
         if loader is None:
             return
         n = self.num_sanity_val_steps
@@ -418,7 +503,7 @@ class Trainer:
             self.eval_step(batch)
 
     def _log_step(self, step_metrics: Dict[str, Tensor], metrics: Dict[str, float]) -> None:
-        host = {k: float(v) for k, v in step_metrics.items()}
+        host = reduce_dict(step_metrics)
         self._check_finite(host)
         self.logger_.update(**host)
         metrics.update({f"train_{k}": v for k, v in host.items()})
@@ -434,7 +519,7 @@ class Trainer:
             for bi, batch in enumerate(self.logger_.log_every(train_loader, header=f"epoch {epoch}")):
                 if self._train_batch_limit is not None and bi >= self._train_batch_limit:
                     break
-                if self._interrupted:  # signalled while the loader fetched this batch
+                if self._agree_to_stop():  # signalled while the loader fetched this batch
                     break
                 self._apply_warmup()
                 step_metrics = self.train_step(batch)
@@ -451,8 +536,9 @@ class Trainer:
                 if self.max_steps and self._opt_step >= self.max_steps:
                     self.should_stop = True
                     break
-                if self._interrupted:
+                if self._interrupted and self._ddp is None:
                     break
+            self._agree_to_stop()
             self._flush_accumulation(interval, frequency)
             if step_metrics is not None and not logged:
                 self._log_step(step_metrics, metrics)
@@ -473,10 +559,20 @@ class Trainer:
                 mem = device_memory_stats()
                 if mem:
                     logger.info("device memory: %s", mem)
-            for cb in self.callbacks:
+            for cb in self._rank_callbacks():
                 cb.on_epoch_end(self, metrics)
+            self._agree_to_stop()
             if self.should_stop:
                 break
+
+    def _agree_to_stop(self) -> bool:
+        """The interrupt flag (returned) and ``should_stop``, each true on
+        every rank when it is true on any: a rank that left the loop alone
+        would leave the others waiting in DDP's next all-reduce."""
+        if self._ddp is not None:
+            self._interrupted, self.should_stop = any_rank(
+                [self._interrupted, self.should_stop])
+        return self._interrupted
 
     def _check_finite(self, metrics: Dict[str, float]) -> None:
         """Fail loudly on divergence instead of training on garbage."""
@@ -502,6 +598,9 @@ class Trainer:
         step-interval schedulers and max_steps their boundary tick."""
         if not isinstance(self._optimizer, GradientAccumulation):
             return
+        if self._ddp is not None and self._optimizer.mini_step:
+            # A partial window's micro-batches all ran under no_sync.
+            average_gradients(self._model.net.module.parameters(), self._ddp.process_group)
         mini = self._optimizer.mini_step
         if not self._optimizer.flush():
             return
@@ -522,14 +621,15 @@ class Trainer:
 
     def _run_validation(self, model: RetinaNetModel) -> Dict[str, float]:
         """Mean per-image validation losses over the val loader (or, under
-        ``overfit_batches``, over the same train slice)."""
+        ``overfit_batches``, over the same train slice); each rank sums its
+        shard, and the (totals, count) pairs merge across ranks."""
         if self.overfit_batches:
-            loader = model.train_dataloader()
+            loader = model.train_dataloader(**self._shard())
             if hasattr(loader, "shuffle"):
                 loader.shuffle = False
             limit = self._resolve_limit(self.overfit_batches, len(loader))
         else:
-            loader = model.val_dataloader()
+            loader = model.val_dataloader(**self._shard())
             if loader is None:
                 return {}
             limit = self._resolve_limit(self.limit_val_batches, len(loader))
@@ -545,6 +645,10 @@ class Trainer:
             for k, v in losses.items():
                 totals[k] = totals.get(k, 0.0) + float(v.cpu().numpy()[mask].sum())
             count += int(mask.sum())
+        shards = all_gather_objects((totals, count))
+        keys = dict.fromkeys(k for t, _ in shards for k in t)
+        totals = {k: sum(t.get(k, 0.0) for t, _ in shards) for k in keys}
+        count = sum(c for _, c in shards)
         if not count:
             return {}
         out = {f"val_{k}" if k != "loss" else "val_loss": v / count for k, v in totals.items()}
@@ -585,16 +689,17 @@ class Trainer:
 
     def test(self, model: RetinaNetModel) -> List[Dict[str, float]]:
         """COCO evaluation of the test set (reference test_step /
-        test_epoch_end, model.py:132-146): ``[{"AP": stats[0]}]``."""
+        test_epoch_end, model.py:132-146): ``[{"AP": stats[0]}]``. Each rank
+        predicts its shard; the detections merge before scoring."""
         self._ensure_data(model)
         evaluator = model.test_evaluator()
-        loader = model.test_dataloader()
+        loader = model.test_dataloader(**self._shard())
         limit = self._resolve_limit(self.limit_test_batches, len(loader))
         for bi, batch in enumerate(self.logger_.log_every(loader, header="test")):
             if bi >= limit:
                 break
             evaluator.update(self._predict_batch(batch))
-        evaluator.synchronize_between_processes()
+        evaluator.synchronize_between_processes(all_gather_objects)
         evaluator.accumulate()
         stats = evaluator.summarize()
         results = {"AP": float(stats["bbox"][0])}

@@ -516,9 +516,10 @@ class CocoEvaluator:
         """Merge result shards across data-parallel eval processes (reference
         coco_eval.py:44-49/164-183 used pickle-over-NCCL).
 
-        ``all_gather_fn(obj)`` returns every process's ``obj`` in rank order.
-        Without one this is the single-process identity (the port's
-        distributed layer is ROADMAP A9)."""
+        ``all_gather_fn(obj)`` returns every process's ``obj`` in rank order
+        (``parallel.all_gather_objects``, as ``Trainer.test`` passes it); every
+        rank then holds all image ids and results, in rank order. Without
+        one this is the single-process identity."""
         if all_gather_fn is None:
             def all_gather_fn(obj):
                 return [obj]

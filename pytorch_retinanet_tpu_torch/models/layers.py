@@ -9,7 +9,8 @@ Conventions of the port, mirroring ``pytorch_retinanet_tpu/models/layers.py``:
 * Batch norm is frozen by default: running statistics, applied in f32 and
   rounded to the compute dtype. A live one (``frozen=False``, in training
   mode) normalizes with the batch's statistics and updates the running ones
-  as flax's ``nn.BatchNorm`` does.
+  as flax's ``nn.BatchNorm`` does; in a process group of more than one rank
+  the statistics are the global batch's, as JAX's over a data-sharded batch.
 """
 
 from __future__ import annotations
@@ -19,8 +20,11 @@ import threading
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel import get_world_size
 
 Tensor = torch.Tensor
 
@@ -60,9 +64,11 @@ class BatchNorm2d(nn.Module):
     returned in the dtype of `x`. Live in training mode: the same on the
     batch's mean and biased variance over (N, H, W), computed in f32, and
     ``running = 0.9 * running + 0.1 * batch`` with the biased variance,
-    flax's ``nn.BatchNorm(momentum=0.9)``. :meth:`folded`
-    gives the running map as a per-channel ``scale`` and ``shift``, the form
-    the fused stem takes.
+    flax's ``nn.BatchNorm(momentum=0.9)``. In a process group of more than
+    one rank, live training normalizes with the global batch's statistics
+    (:meth:`_global_batch_norm`) and the running update counts the global
+    batch. :meth:`folded` gives the running map as a per-channel ``scale``
+    and ``shift``, the form the fused stem takes.
     """
 
     momentum = 0.9  # flax's convention: the running statistics' own weight
@@ -87,6 +93,8 @@ class BatchNorm2d(nn.Module):
             # into x's dtype, one pass over the activation (cuDNN on the card).
             y = F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                              False, 0.0, self.eps)
+        elif get_world_size() > 1:
+            y = self._global_batch_norm(x)
         else:
             # Train-mode batch_norm normalizes with the biased variance; with
             # momentum 1 it writes the batch mean and the *unbiased* variance
@@ -102,6 +110,73 @@ class BatchNorm2d(nn.Module):
                     self.running_var.mul_(m).add_(var, alpha=(1.0 - m) * (n - 1) / n)
                     self.num_batches_tracked.add_(1)
         return torch.relu_(y) if relu else y
+
+    def _global_batch_norm(self, x: Tensor) -> Tensor:
+        """Live batch norm over every rank's batch (:class:`_GlobalBatchNorm`),
+        and the running update with the global batch's mean and biased
+        variance, outside a rematerialized forward."""
+        y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps)
+        if not getattr(_RECOMPUTE, "on", False):
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+                self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+                self.num_batches_tracked.add_(1)
+        return y
+
+
+def _channel_sums(*ts: Tensor) -> Tensor:
+    """Per-channel sums of NCHW tensors over (N, H, W), accumulated in f64
+    and packed into one vector, the payload of one all-reduce."""
+    return torch.cat([t.sum((0, 2, 3), dtype=torch.float64) for t in ts])
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Batch norm of each rank's rows with the statistics of the global batch.
+
+    Forward: all-reduce the local per-channel ``[sum, count]`` for the mean,
+    then the centred ``sum((x - mean)^2)`` for the biased variance (two
+    passes, for stability). Backward: all-reduce the per-channel ``sum(dy)``
+    and ``sum(dy * (x - mean))``, which every rank's input gradient needs;
+    the weight and bias gradients stay this rank's (DDP averages them).
+    Each rank issues these collectives per layer in the same order, the
+    rematerialized forward included. Sums accumulate in f64; the
+    normalization runs in f32 and returns `x`'s dtype.
+    """
+
+    @staticmethod
+    def forward(ctx, x: Tensor, weight: Tensor, bias: Tensor, eps: float):
+        c = x.shape[1]
+        packet = torch.cat([_channel_sums(x), x.new_full((1,), x.numel() // c, dtype=torch.float64)])
+        dist.all_reduce(packet)
+        n = packet[c]  # a device scalar: no host sync under NCCL
+        mean = (packet[:c] / n).float()
+        xmu = x.float() - mean[None, :, None, None]
+        var_sum = _channel_sums(xmu.square())
+        dist.all_reduce(var_sum)
+        var = (var_sum / n).float()
+        invstd = torch.rsqrt(var + eps)
+        scale = invstd * weight
+        y = (xmu * scale[None, :, None, None] + bias[None, :, None, None]).to(x.dtype)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.n = n
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy: Tensor, _mean, _var):
+        x, weight, mean, invstd = ctx.saved_tensors
+        c = x.shape[1]
+        dy32 = dy.float()
+        xmu = x.float() - mean[None, :, None, None]
+        local = _channel_sums(dy32, dy32 * xmu)
+        sums = local.clone()
+        dist.all_reduce(sums)
+        mean_dy = (sums[:c] / ctx.n).float()
+        proj = (sums[c:] / ctx.n).float() * invstd * invstd
+        dx = (dy32 - mean_dy[None, :, None, None] - xmu * proj[None, :, None, None]) \
+            * (invstd * weight)[None, :, None, None]
+        return dx.to(x.dtype), (local[c:].float() * invstd), local[:c].float(), None
 
 
 def space_to_depth_2x(x: Tensor) -> Tensor:

@@ -17,6 +17,8 @@ The targets (matcher, matched-GT lookup, encode) are built under
 ``torch.no_grad()``: they are constants with respect to the parameters. On
 CUDA they come from the hand-written match kernel (``kernels/match.py``) by
 default; ``use_match_kernel=False`` takes the plain composition.
+``match_mesh`` splits the match over the batch rows of a process group, as
+JAX's ``shard_map`` splits the kernel over a device mesh.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from ..config import (
     BBOX_REG_WEIGHTS,
@@ -34,6 +37,7 @@ from ..config import (
     SMOOTH_L1_LOSS_BETA,
 )
 from ..kernels import match as _match
+from ..parallel import MeshPlan
 
 Tensor = torch.Tensor
 
@@ -139,13 +143,20 @@ def retinanet_loss_levels(
     Matching is per anchor and the normalizer a per-image count, so the loss
     decomposes into per-level sums that are combined before normalizing;
     this skips the cross-level concat of the head outputs. The match kernel
-    runs once per level. ``match_mesh`` (the JAX package's multi-device
-    batch split of the kernel) waits for ROADMAP A9 and raises if given.
+    runs once per level.
+
+    ``match_mesh`` (a :class:`..parallel.MeshPlan` or a process group) is
+    for callers whose ranks all hold the same global batch: rank r matches
+    rows ``[r*B/W, (r+1)*B/W)`` and the ranks all-gather the targets, which
+    equal the unsplit match's. The DDP Trainer does not pass it: each of
+    its ranks holds only its own rows.
     """
-    if match_mesh is not None:
-        raise NotImplementedError(
-            "match_mesh (the match kernel split over a device mesh) is ROADMAP A9, distributed"
-        )
+    if isinstance(match_mesh, MeshPlan):
+        group = match_mesh.group
+    elif match_mesh is None or isinstance(match_mesh, dist.ProcessGroup):
+        group = match_mesh
+    else:
+        raise TypeError(f"match_mesh takes a MeshPlan or a process group, not {match_mesh!r}")
     # Converted once here rather than once per level inside the match.
     gt_boxes, gt_labels, gt_valid = gt_boxes.float(), gt_labels.to(torch.int32), gt_valid.bool()
     reg_sum = cls_sum = num_fg = 0
@@ -154,7 +165,7 @@ def retinanet_loss_levels(
             cls_l, box_l, anc_l, gt_boxes, gt_labels, gt_valid,
             num_classes=num_classes, fg_iou_thr=fg_iou_thr, bg_iou_thr=bg_iou_thr,
             alpha=alpha, gamma=gamma, beta=beta, reg_weights=reg_weights,
-            use_match_kernel=use_match_kernel,
+            use_match_kernel=use_match_kernel, match_group=group,
         )
         reg_sum, cls_sum, num_fg = reg_sum + r, cls_sum + c, num_fg + f
     return _normalize(reg_sum, cls_sum, num_fg, reduction)
@@ -176,6 +187,7 @@ def _loss_sums(
     beta: float,
     reg_weights: Sequence[float],
     use_match_kernel: Optional[bool] = None,
+    match_group=None,
 ):
     """Unnormalized per-image sums over one anchor set: (reg_sum [B],
     cls_sum [B], num_fg [B]), so that levels can be combined."""
@@ -188,6 +200,8 @@ def _loss_sums(
     box_deltas = box_deltas.float()
     with torch.no_grad():
         fn = _match.match_targets if use_match_kernel else _match.match_targets_plain
+        if match_group is not None and dist.get_world_size(match_group) > 1:
+            fn = _split_over_ranks(fn, match_group)
         matches, fg_labels, reg_targets = fn(
             torch.as_tensor(anchors, device=cls_logits.device).float(), gt_boxes.float(),
             gt_labels, gt_valid, fg_iou_thr, bg_iou_thr, tuple(reg_weights),
@@ -204,3 +218,25 @@ def _loss_sums(
     cls_elem = sigmoid_focal_loss(cls_logits, cls_targets, alpha, gamma)  # [B, A, C]
     cls_sum = (cls_elem.sum(dim=-1) * not_ignored).sum(dim=1)
     return reg_sum, cls_sum, num_fg
+
+
+def _split_over_ranks(fn, group):
+    """`fn(anchors, gt_boxes, gt_labels, gt_valid, *args)` run by each rank
+    of `group` on its share of the batch rows, the outputs all-gathered in
+    rank order along the batch."""
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+
+    def split(anchors, gt_boxes, gt_labels, gt_valid, *args):
+        b = gt_boxes.shape[0]
+        if b % world:
+            raise ValueError(f"match_mesh: batch {b} does not divide over {world} ranks")
+        rows = slice(rank * b // world, (rank + 1) * b // world)
+        outs = fn(anchors, gt_boxes[rows], gt_labels[rows], gt_valid[rows], *args)
+        gathered = []
+        for t in outs:
+            parts = [torch.empty_like(t) for _ in range(world)]
+            dist.all_gather(parts, t.contiguous(), group=group)
+            gathered.append(torch.cat(parts))
+        return tuple(gathered)
+
+    return split

@@ -146,7 +146,7 @@ def test_zero_gt_images_give_finite_zero_regression_loss():
 def test_match_kernel_on_cpu_raises(case):
     with pytest.raises(ValueError, match="CUDA"):
         _port_levels(case, use_match_kernel=True)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(TypeError, match="match_mesh"):
         retinanet_loss_levels([], [], [], None, None, None, num_classes=1, match_mesh=object())
 
 

@@ -36,6 +36,7 @@ from pytorch_retinanet_tpu.models.converter import flax_retinanet_to_torch, torc
 from pytorch_retinanet_tpu.models.retinanet import Retinanet as JaxRetinanet
 from pytorch_retinanet_tpu_torch import ConfigDict, RetinaNetModel, Retinanet, Trainer
 from pytorch_retinanet_tpu_torch.data import pad_targets
+from pytorch_retinanet_tpu_torch.parallel import make_train_mesh
 
 KIND = "resnet18"
 MODEL = dict(num_classes=4, backbone_kind=KIND, pretrained=False, min_size=64, max_size=96,
@@ -235,10 +236,12 @@ def test_pad_targets_matches_jax():
 # ---------------------------------------------------------------------------- #
 # The port's Trainer knobs (no JAX counterpart run)
 # ---------------------------------------------------------------------------- #
-@pytest.mark.parametrize("knob", [{"mesh": object()}, {"devices": [0]}])
+@pytest.mark.parametrize("knob", [{"spatial": 2}, {"spatial": 4, "data": 1}])
 def test_later_knobs_raise_with_their_roadmap_item(knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        Trainer(**knob)
+    """Data-parallel meshes are ported (``tests/test_torch_ddp.py``); a
+    spatial training mesh is ROADMAP A14."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
+        Trainer(mesh=make_train_mesh(["cpu"], **knob))
 
 
 def test_trainer_test_predict_and_data_kinds_raise(variables):
