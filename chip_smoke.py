@@ -22,10 +22,11 @@ or the JAX package. Phases, each of which fails the run on any fault:
    against ``predict`` on the CPU at a small size (f32 and resized uint8);
 5. times (CUDA events after warm-up): the stem kernel from uint8 and f32 and
    the NMS kernel beside their bounds, plain versions and PyTorch
-   yardsticks, and predict img/s at batch 32; for NMS also its two
-   kernels' device time from one ``torch.profiler`` window (``device_ms``
-   in the ``kernels`` line), with the wrapper's host time per call and the
-   registers and spills of its ``-Xptxas -v`` log;
+   yardsticks, and predict img/s at batch 32; for NMS and the stem also
+   their kernels' device time from a ``torch.profiler`` window
+   (``device_ms`` in the ``kernels`` line: the hand-written kernels' alone,
+   not the wrapper's PyTorch ops), with the wrapper's host time per call and
+   the registers and spills of the NMS kernel's ``-Xptxas -v`` log;
 6. match kernel against ``match_targets_plain`` at the training shapes:
    batch 16, the five levels of the 800x1344 bucket, 100 GT rows, seeded GT
    with 0, 1, a few and 100 valid rows and a constructed IoU tie; then at
@@ -73,7 +74,8 @@ f. times: the bottleneck kernel per stage and summed over the 10 blocks of a
    forward, beside its bound, its plain version and the port's cuDNN
    ``Bottleneck`` module, with its achieved TFLOP/s (useful work) and the
    weight bytes its CTAs stream through L2; the top-2 kernel at [32 * 151200, 90] beside its
-   bound, plain version and ``torch.topk``; the trunk, the forward and the
+   bound, plain version and ``torch.topk``; both kernels' device time from
+   the profiler (``device_ms``); the trunk, the forward and the
    predict composition through the fused trunk against the default path.
 
 Then the training engine and live batch norm at full width (R50-FPN, 90
@@ -189,6 +191,24 @@ multi-GPU scaling figure.
        rank, the merged records and AP against 12d's one process (equal, or
        JAX's multi-process bar: ``MERGED_OVERLAP`` and ``MERGED_AP_TOL``).
 
+Then the flat postprocess and the parity tools (phase 15), at full width:
+
+15. a. the flat postprocess (``ops.process_detections_batch``, the top
+       ``FLAT_TOP_K`` of the sigmoid over all 18.1M (anchor, class) pairs)
+       on phase 4's head outputs of its first ``FLAT_IMAGES`` images, one
+       image a call, through the NMS kernel and through its plain version:
+       labels, valid flags, boxes and scores equal, the NMS kernel launched
+       once a call and nothing else (read around each arm), its detections
+       checked as phase 4's; ms a call and the peak memory;
+    b. ``tools/torch_parity_report.py`` at 800x1344, 90 classes,
+       ``PARITY_IMAGES`` images: every port row (flat and multilevel, plain
+       and kernel NMS) at ΔAP +0.0000 against the torch oracle, the NMS
+       kernel launched once an image in each kernel row (and once more, in
+       its untimed first call);
+    c. ``tools/torch_loss_parity.py`` at 800x1344, batch 4, 90 classes: both
+       arms within JAX's bar of the oracle, the match kernel launched 5
+       times in its arm and not in the plain one.
+
 The last lines are the ``kernels`` JSON, the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -196,6 +216,7 @@ limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import csv
+import importlib
 import importlib.util
 import json
 import os
@@ -341,9 +362,14 @@ def device_times(fn, iters: int = 10) -> dict:
             "event_ms": start.elapsed_time(end) / iters, "host_us": host_us}
 
 
-def device_ms(t: dict) -> float:
-    """The device ms per call of ``device_times``' kernels."""
-    return sum(us for us, _ in t["kernels"].values()) / 1e3
+def device_ms(t: dict, names=None) -> float:
+    """The device ms per call of ``device_times``' kernels, or of those in
+    `names` alone (a hand-written kernel's, without the wrapper's PyTorch ops);
+    fails if none of `names` was recorded."""
+    us = [v for k, (v, _) in t["kernels"].items() if names is None or k in names]
+    if not us:
+        raise SystemExit(f"the profiler recorded none of {names}: device time not measured")
+    return sum(us) / 1e3
 
 
 def log_device_times(what: str, t: dict) -> None:
@@ -1340,7 +1366,7 @@ def data_test_phase(hp, coco: dict) -> tuple:
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
-    tested = multihost_tool().test_with_records(trainer, model)
+    tested = tool("torch_multihost_smoke").test_with_records(trainer, model)
     ap = tested["AP"]
     total_s = time.perf_counter() - t0
     launches = {k.name: k.wrapper.launches for k in KERNELS}
@@ -1670,7 +1696,8 @@ def time_bottleneck_stages(dev, stage_args, fused_bottleneck, bottleneck_plain) 
         bottleneck_launch_config, pack_bottleneck_weights,
     )
 
-    tot = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms"), 0.0)
+    tot = dict.fromkeys(("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
+                         "ops_ms"), 0.0)
     for (h, w, mid, blocks), args in zip(BOTTLENECK_STAGES, stage_args):
         c = 4 * mid
         block = cudnn_block(args, dev)
@@ -1680,6 +1707,9 @@ def time_bottleneck_stages(dev, stage_args, fused_bottleneck, bottleneck_plain) 
                  "plain_ms": time_ms(lambda: bottleneck_plain(*args), 3),
                  "library_ms": time_ms(lambda: block(x_nchw), 10)}
             pack_ms = time_ms(lambda: pack_bottleneck_weights(args[1], args[4], args[7]), 10)
+            trace = device_times(lambda: fused_bottleneck(*args), 10)
+        t["device_ms"] = device_ms(trace, ("bottleneck_kernel",))
+        log_device_times(f"fused_bottleneck [{BATCH}, {h}, {w}, {c}] mid {mid}", trace)
         weights = (2 * c * mid + 9 * mid * mid) * 2 + (2 * mid + 2 * mid + 2 * c) * 4
         flops = 2.0 * BATCH * h * w * (2 * c * mid + 9 * mid * mid)
         t["bytes_ms"] = (2 * args[0].numel() * 2 + weights) / HBM_BYTES_PER_S * 1e3
@@ -1796,7 +1826,7 @@ def fused_trunk_phases(dev, results, net, batch, sizes) -> None:
     # f. Times.
     bt = results["fused_bottleneck"]
     tot = time_bottleneck_stages(dev, stage_args, fused_bottleneck, bottleneck_plain)
-    bt.update({k: tot[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")})
+    bt.update({k: tot[k] for k in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")})
     bt["bound_by"] = "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes"
     log("[time] fused_bottleneck, the 10 blocks of one forward summed:")
     log_kernel_time(bt)
@@ -1806,6 +1836,9 @@ def fused_trunk_phases(dev, results, net, batch, sizes) -> None:
     a = BATCH * TOP2_LEVELS[0]
     logits = (torch.randn((a, 90), generator=g, device=dev) * 2 - 4).to(torch.bfloat16)
     tp["ms"] = time_ms(lambda: top2_classes(logits), 20)
+    top2_times = device_times(lambda: top2_classes(logits), 20)
+    tp["device_ms"] = device_ms(top2_times, ("top2_kernel",))
+    log_device_times(f"top2_classes at [{a}, 90] bf16", top2_times)
     tp["plain_ms"] = time_ms(lambda: top2_classes_plain(logits), 3)
     tp["library_ms"] = time_ms(lambda: torch.topk(logits, 2, dim=1), 10)
     tp["bound_ms"], tp["bound_by"] = max(
@@ -2098,14 +2131,13 @@ FULL_RANK_BATCH, FULL_STEPS = 8, 4
 MERGED_OVERLAP, MERGED_AP_TOL = 0.97, 2e-3
 
 
-def multihost_tool():
-    """``tools/torch_multihost_smoke.py`` (the rank spawner and its jobs)."""
+def tool(name: str):
+    """``tools/<name>.py`` imported as a module, with ``tools/`` on the path
+    (the rank spawner's spawned ranks import its jobs by that name)."""
     tools = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools")
     if tools not in sys.path:
         sys.path.insert(0, tools)
-    import torch_multihost_smoke
-
-    return torch_multihost_smoke
+    return importlib.import_module(name)
 
 
 def synchronize(dev: torch.device) -> None:
@@ -2116,7 +2148,7 @@ def synchronize(dev: torch.device) -> None:
 def full_live_bn_job(rank: int, world: int, params: dict) -> dict:
     """14b, each rank: R50-FPN live-BN bf16 steps on its rows of seeded
     uint8 batches; launches, the state digest, the peak memory, step ms."""
-    mh = multihost_tool()
+    mh = tool("torch_multihost_smoke")
     dev = torch.device(params["device"])
     from pytorch_retinanet_tpu_torch import ConfigDict, RetinaNetModel, Trainer
     from pytorch_retinanet_tpu_torch.kernels import KERNELS, reset_launch_counts
@@ -2283,7 +2315,7 @@ def nccl_world_one(dev, fitted7: dict) -> None:
 
 def small_ranks_vs_one_process(dev, work: str, devices: list) -> None:
     """14b small: two gloo ranks of the f32 live-BN step against one process."""
-    mh = multihost_tool()
+    mh = tool("torch_multihost_smoke")
     state = mh.seeded_state(SMALL_NET, seed=3)
     rng = np.random.default_rng(8)
     batches = []
@@ -2330,7 +2362,7 @@ def layer_checks_job(rank: int, world: int, params: dict) -> dict:
     from pytorch_retinanet_tpu_torch.ops import generate_anchors_per_level, retinanet_loss_levels
     from pytorch_retinanet_tpu_torch.ops.losses import _split_over_ranks
 
-    mh = multihost_tool()
+    mh = tool("torch_multihost_smoke")
     dev = torch.device(params["device"], params["devices"][rank]) \
         if params["device"] == "cuda" else torch.device("cpu")
     shape = tuple(params["bn_shape"])
@@ -2409,7 +2441,7 @@ def layer_checks_job(rank: int, world: int, params: dict) -> dict:
 def layer_checks(dev, work: str, devices: list) -> None:
     """14b layers: the synced live BN layer and the match_mesh split on two
     gloo ranks on the card (:func:`layer_checks_job`)."""
-    mh = multihost_tool()
+    mh = tool("torch_multihost_smoke")
     out = join_ranks("14b layers (live BN rows, match_mesh)", mh.RankRun(
         layer_checks_job, {"device": dev.type, "devices": devices, "bn_shape": LAYER_BN_SHAPE,
                            "batch": TRAIN_BATCH, "h": H, "w": W},
@@ -2445,7 +2477,7 @@ def ddp_phases(dev, fitted7: dict, test_ref: tuple) -> None:
     ranks on the one card against one process and each other (14b), and
     the merged ``Trainer.test`` on two gloo ranks (14c)."""
     t_phase = time.perf_counter()
-    mh = multihost_tool()
+    mh = tool("torch_multihost_smoke")
     work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_ddp")
     import shutil
 
@@ -2508,6 +2540,133 @@ def ddp_phases(dev, fitted7: dict, test_ref: tuple) -> None:
                          f"{abs(r0['AP'] - ap_ref)} (bar {MERGED_AP_TOL})")
     shutil.rmtree(work, ignore_errors=True)  # the saved states
     log(f"[ddp] phase 14 took {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the flat postprocess and the parity tools, at full width.
+# ---------------------------------------------------------------------------
+FLAT_IMAGES = 8  # phase 4's images whose head outputs 15a keeps, one a call
+FLAT_TOP_K = 4096  # the parity report's flat row: every planted candidate
+PARITY_IMAGES = 8  # 15b's val set, cut from the tool's 50 for time
+LOSS_BATCH = 4  # 15c, the loss tool's configuration: 800x1344, batch 4, 90 classes
+
+
+def flat_head_outputs(net, batch) -> tuple:
+    """Phase 4's head outputs on its batch of 32, the first FLAT_IMAGES
+    images' concatenated over the levels ([N, A, 90] logits and [N, A, 4]
+    deltas in the head's bf16), kept on the host for phase 15a."""
+    from pytorch_retinanet_tpu_torch.models.retinanet import apply_detector
+
+    with torch.inference_mode():
+        cls_levels, box_levels = apply_detector(net.module, batch, return_levels=True)
+        return (torch.cat(cls_levels, 1)[:FLAT_IMAGES].cpu(),
+                torch.cat(box_levels, 1)[:FLAT_IMAGES].cpu())
+
+
+def flat_arm(dev, cls, box, anchors, sizes, kernel: bool) -> tuple:
+    """15a: the flat postprocess on each image, one call an image, through
+    the NMS kernel or its plain version; the detections, the launch counts
+    of this arm alone, the ms of each call and the peak GiB."""
+    from pytorch_retinanet_tpu_torch.kernels import reset_launch_counts
+    from pytorch_retinanet_tpu_torch.ops import process_detections_batch
+
+    synchronize(dev)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    dets, ms = [], []
+    for i in range(cls.shape[0]):
+        synchronize(dev)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            dets.append(process_detections_batch(cls[i:i + 1], box[i:i + 1], anchors,
+                                                 sizes[i:i + 1], pre_nms_top_k=FLAT_TOP_K,
+                                                 use_kernel=kernel))
+        synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    return dets, launches, ms, peak
+
+
+def flat_path_phases(dev, heads) -> None:
+    """Phase 15: the flat postprocess on phase 4's head outputs, kernel arm
+    against plain arm (15a); the parity report at 800x1344 with 90 classes
+    (15b); the loss parity at its full configuration (15c)."""
+    from pytorch_retinanet_tpu_torch.ops import generate_anchors
+
+    t_phase = time.perf_counter()
+    cls, box = (t.to(dev) for t in heads)
+    n = cls.shape[0]
+    anchors = torch.from_numpy(generate_anchors((H, W))).to(dev)
+    sizes = torch.tensor([[800.0, 1333.0]] * n, device=dev)
+    arms = {k: flat_arm(dev, cls, box, anchors, sizes, k) for k in (True, False)}
+    (got, launches, ms, peak), (ref, plain_launches, plain_ms, plain_peak) = arms[True], arms[False]
+    want = {k: n if k == "nms_keep_mask" else 0 for k in launches}
+    if launches != want or any(plain_launches.values()):
+        raise SystemExit(f"[flat] {n} calls launched {launches} through the kernel arm and "
+                         f"{plain_launches} through the plain arm; expected {want} and none")
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if not all(torch.equal(a, b) for a, b in zip(g, r)):
+            raise SystemExit(f"[flat] image {i}: the NMS kernel arm's detections differ from "
+                             "the plain arm's")
+    preds = [{"boxes": d.boxes[0][d.valid[0]].cpu().numpy(),
+              "scores": d.scores[0][d.valid[0]].cpu().numpy(),
+              "labels": d.labels[0][d.valid[0]].cpu().numpy()} for d in got]
+    check_detections(preds)
+    log(f"[flat] 15a flat postprocess (pre_nms_top_k {FLAT_TOP_K} of A*C = "
+        f"{cls.shape[1] * cls.shape[2]:,}) on phase 4's first {n} images, one a call: the NMS "
+        f"kernel arm equals the plain arm (labels, valid, boxes, scores); launches {launches}; "
+        f"detections per image {[len(p['scores']) for p in preds]}")
+    log(f"[time] flat postprocess, one 800x1344 image of R50 head outputs (bf16, 90 classes), "
+        f"host clock around a synchronize: kernel arm median {np.median(ms):.2f} ms "
+        f"({['%.2f' % v for v in ms]}), plain arm median {np.median(plain_ms):.2f} ms; peak "
+        f"above the inputs {peak:.2f} / {plain_peak:.2f} GiB")
+    del cls, box, got, ref
+    torch.cuda.empty_cache()
+
+    from pytorch_retinanet_tpu_torch.kernels import reset_launch_counts
+
+    report, loss = tool("torch_parity_report"), tool("torch_loss_parity")
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    res = report.run(PARITY_IMAGES, 90, (H, W), dev)
+    launches = read_launches()
+    # Each of the two kernel rows: an untimed first call, then one call an image.
+    want = {k: 2 * (PARITY_IMAGES + 1) if k == "nms_keep_mask" else 0 for k in launches}
+    if launches != want:
+        raise SystemExit(f"[parity] 15b launched {launches}, expected {want}")
+    for r in res["rows"]:
+        kernel_row = r["pipeline"].endswith("NMS kernel")
+        want = PARITY_IMAGES if kernel_row else 0
+        log(f"[parity] 15b {r['pipeline']}: AP {r['ap']:.4f}, delta {r['delta_ap']:+.4f}, "
+            f"{r['seconds']:.3f} s, {r['nms_launches']} NMS launches, peak {r['peak_gib']}")
+        if f"{r['delta_ap']:+.4f}" != "+0.0000" or r["nms_launches"] != want:
+            raise SystemExit(f"[parity] 15b {r['pipeline']}: delta AP {r['delta_ap']:+.6f}, "
+                             f"{r['nms_launches']} NMS launches (expected +0.0000, {want})")
+    log(f"[parity] 15b {H}x{W}, 90 classes, {PARITY_IMAGES} images: every row delta AP +0.0000 "
+        f"against the torch oracle ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    res = loss.run(H, W, LOSS_BATCH, 90, MAX_GT, dev)
+    launches = read_launches()
+    want = {k: 5 if k == "match_targets" else 0 for k in launches}
+    if launches != want:
+        raise SystemExit(f"[parity] 15c launched {launches}, expected {want}")
+    for name, d in res["rows"]:
+        log(f"[parity] 15c {name}: classification {d['classification_loss']:.6f}, regression "
+            f"{d['regression_loss']:.6f}, match launches {d.get('match_launches', '-')}")
+    if not res["within_bar"] or res["port_kernel"]["match_launches"] != 5 \
+            or res["port_plain"]["match_launches"] != 0:
+        raise SystemExit(f"[parity] 15c: max |delta| {res['max_abs_delta']:.3e} (bar "
+                         f"{res['bar']}), match launches {res['port_kernel']['match_launches']} / "
+                         f"{res['port_plain']['match_launches']} (expected 5 / 0)")
+    log(f"[parity] 15c loss at {H}x{W}, batch {LOSS_BATCH}, 90 classes: within JAX's bar "
+        f"({res['bar']}), max |delta| {res['max_abs_delta']:.3e}; the match-kernel arm bit for "
+        f"bit equal to the plain arm: {res['kernel_bitwise_equal_plain']} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    log(f"[flat] phase 15 took {time.perf_counter() - t_phase:.1f} s")
+
 
 
 def record_key(r: dict) -> tuple:
@@ -2709,6 +2868,10 @@ def main() -> int:
         log_kernel_time(t)
         if dtype == torch.uint8:
             st.update({k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+            stem_times = device_times(lambda: stem_forward(x, mean, std, w, scale, bias), 20)
+            st["device_ms"] = device_ms(stem_times, ("stem_kernel",))
+            log_device_times(f"fused_stem at {tuple(x.shape)} uint8 (the wrapper packs the "
+                             "weights on each call)", stem_times)
     nm = results["nms_keep_mask"]
     nm["ms"] = time_ms(lambda: nms_keep_mask(offset_boxes, cvalid, 0.5), 50)
     nms_times = device_times(lambda: nms_keep_mask(offset_boxes, cvalid, 0.5), 50)
@@ -2741,6 +2904,7 @@ def main() -> int:
         f"{BATCH / per_batch:.1f} img/s; forward on the uint8 batch (stem with the normalize "
         f"folded in+trunk+FPN+head) {t_net:.2f} ms; postprocess {t_post:.2f} ms; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    flat_heads = flat_head_outputs(net, batch)
     del gpu_net, cpu_net, x, stem_in
     torch.cuda.empty_cache()
 
@@ -2760,6 +2924,8 @@ def main() -> int:
     export_serve_phases(dev)
     torch.cuda.empty_cache()
     ddp_phases(dev, fitted7, test_ref)
+    torch.cuda.empty_cache()
+    flat_path_phases(dev, flat_heads)
 
     log(json.dumps({"kernels": [results[k.name] for k in KERNELS]}))
     print(smi)

@@ -1,15 +1,26 @@
 """Fixed-shape detection postprocess, batched over images.
 
-Counterpart of ``pytorch_retinanet_tpu/ops/nms.py`` in its exact selection
-mode (``approx_top_k=False``): per level, the top anchors by class-max, then
-the top (anchor, class) pairs among their gathered rows; a cross-level merge;
-class-offset greedy NMS; top-``max_detections`` packing. Every step runs on
-``[B, ...]`` tensors, with no loop over images.
+Counterpart of ``pytorch_retinanet_tpu/ops/nms.py`` in its two paths:
+
+* the multilevel path in its exact selection mode (``approx_top_k=False``),
+  the one ``Retinanet.predict`` runs: per level, the top anchors by
+  class-max, then the top (anchor, class) pairs among their gathered rows;
+  a cross-level merge;
+* the flat path (:func:`process_detections_batch`): the sigmoid of every
+  (anchor, class) logit, then the top ``pre_nms_top_k`` of all of them.
+
+Both end in class-offset greedy NMS and top-``max_detections`` packing.
+Every step runs on ``[B, ...]`` tensors, with no loop over images. JAX's
+approximate selection (``approx_max_k``, a TPU primitive) has no
+counterpart: the exact mode is the port's production path.
 
 Selection is a stable descending sort, so ties go to the lower index as in
 ``lax.top_k`` (``torch.topk`` orders ties differently). Types follow the JAX
 path: the class-max is taken in the head's compute dtype and the gathered
-rows are cast to f32.
+rows are cast to f32; the flat path takes its sigmoid in f32 before the sort.
+
+``use_kernel=False`` runs the NMS kernel's plain version whatever the
+device, as JAX's ``use_pallas=False`` does; the parity tools compare the two.
 """
 
 from __future__ import annotations
@@ -159,10 +170,12 @@ def _suppress_and_pack(
     nms_thres: float,
     max_detections: int,
     max_coordinate: float,
+    use_kernel: bool,
 ) -> Detections:
     """Class-offset NMS over the [B, K] candidates, then top-k packing."""
     offsets = class_idx.to(torch.float32) * (max_coordinate + 1.0)
-    keep = _kernel_nms.nms_keep_mask(boxes + offsets[..., None], valid, nms_thres)
+    keep_mask = _kernel_nms.nms_keep_mask if use_kernel else _kernel_nms.nms_keep_mask_plain
+    keep = keep_mask(boxes + offsets[..., None], valid, nms_thres)
     sel_scores = torch.where(keep, scores, -1.0)
     det_scores, det_idx = top_k(sel_scores, max_detections)
     det_valid = det_scores > 0.0
@@ -184,6 +197,7 @@ def process_detections_multilevel_batch(
     pre_nms_top_k: int = PRE_NMS_TOP_K,
     reg_weights: Sequence[float] = tuple(BBOX_REG_WEIGHTS),
     max_coordinate: float = 4096.0,
+    use_kernel: bool = True,
 ) -> Detections:
     """Batched multilevel postprocess: per-level [B, A_l, C] logits -> [B, D] detections.
 
@@ -200,7 +214,7 @@ def process_detections_multilevel_batch(
     return _suppress_and_pack(
         boxes, scores, class_idx, valid,
         nms_thres=nms_thres, max_detections=max_detections,
-        max_coordinate=max_coordinate,
+        max_coordinate=max_coordinate, use_kernel=use_kernel,
     )
 
 
@@ -215,5 +229,61 @@ def process_detections_multilevel(
     det = process_detections_multilevel_batch(
         [c[None] for c in cls_levels], [b[None] for b in box_levels],
         anchors_levels, torch.as_tensor(image_size)[None], **kwargs,
+    )
+    return Detections(*(t[0] for t in det))
+
+
+def process_detections_batch(
+    cls_logits: Tensor,
+    box_deltas: Tensor,
+    anchors: Tensor,
+    image_sizes: Tensor,
+    *,
+    score_thres: float = SCORE_THRES,
+    nms_thres: float = NMS_THRES,
+    max_detections: int = MAX_DETECTIONS_PER_IMAGE,
+    pre_nms_top_k: int = PRE_NMS_TOP_K,
+    reg_weights: Sequence[float] = tuple(BBOX_REG_WEIGHTS),
+    max_coordinate: float = 4096.0,
+    use_kernel: bool = True,
+) -> Detections:
+    """Batched flat postprocess: [B, A, C] logits over all anchors -> [B, D] detections.
+
+    ``anchors`` is [A, 4] and ``image_sizes`` [B, 2] (height, width) of each
+    resized, unpadded image. The top ``min(pre_nms_top_k, A * C)`` of the
+    f32 sigmoid scores over the flattened [A * C] pairs are decoded, clipped
+    and suppressed. The sort holds [B, A * C] values and int64 indices: at
+    800x1344 with 90 classes, 18.1M of each per image.
+    """
+    batch, num_anchors, num_classes = cls_logits.shape
+    k = min(pre_nms_top_k, num_anchors * num_classes)
+    anchors = torch.as_tensor(anchors, device=cls_logits.device)
+    scores = torch.sigmoid(cls_logits.float()).reshape(batch, -1)
+    top_scores, top_idx = top_k(scores, k)
+    del scores  # 72 MB an image at 800x1344: freed before the decode allocates
+    anchor_idx = top_idx // num_classes
+    class_idx = (top_idx % num_classes).to(torch.int32)
+    boxes = decode_boxes(
+        _gather_rows(box_deltas.float(), anchor_idx), anchors[anchor_idx], reg_weights
+    )
+    boxes = clip_boxes(boxes, image_sizes.to(boxes.device))
+    valid = (top_scores > score_thres) & small_box_mask(boxes)
+    return _suppress_and_pack(
+        boxes, top_scores, class_idx, valid,
+        nms_thres=nms_thres, max_detections=max_detections,
+        max_coordinate=max_coordinate, use_kernel=use_kernel,
+    )
+
+
+def process_detections(
+    cls_logits: Tensor,
+    box_deltas: Tensor,
+    anchors: Tensor,
+    image_size: Tensor,
+    **kwargs,
+) -> Detections:
+    """One image: [A, C] logits, [A, 4] deltas, (2,) size -> [D] detections."""
+    det = process_detections_batch(
+        cls_logits[None], box_deltas[None], anchors, torch.as_tensor(image_size)[None], **kwargs
     )
     return Detections(*(t[0] for t in det))

@@ -9,6 +9,7 @@ is a lower bound.
 from __future__ import annotations
 
 import os
+from typing import Dict
 
 
 def conv_flops(out_hw, k, cin, cout) -> int:
@@ -25,15 +26,17 @@ def supported_trunks() -> set:
     return set(_BOTTLENECK_DEPTHS)
 
 
-def resnet_trunk_flops(h: int, w: int, kind: str = "resnet50") -> int:
-    """Conv FLOPs of a bottleneck-ResNet trunk (stem and 4 stages) at h x w."""
+def resnet_stage_flops(h: int, w: int, kind: str = "resnet50") -> Dict[str, int]:
+    """Conv FLOPs of a bottleneck-ResNet trunk at h x w, per stage: "stem",
+    "layer1" ... "layer4"."""
     depths = _BOTTLENECK_DEPTHS[kind]
-    fl = conv_flops((h // 2, w // 2), 7, 3, 64)  # stem
+    out = {"stem": conv_flops((h // 2, w // 2), 7, 3, 64)}
     cfg = [(depths[0], 64, 64, 1), (depths[1], 128, 256, 2),
            (depths[2], 256, 512, 2), (depths[3], 512, 1024, 2)]
     sh, sw = h // 4, w // 4
-    for blocks, width, cin, stride in cfg:
+    for stage, (blocks, width, cin, stride) in enumerate(cfg, start=1):
         oh, ow = sh // stride, sw // stride
+        fl = 0
         for b in range(blocks):
             icin = cin if b == 0 else width * 4
             ih, iw = (sh, sw) if b == 0 else (oh, ow)
@@ -42,8 +45,14 @@ def resnet_trunk_flops(h: int, w: int, kind: str = "resnet50") -> int:
             fl += conv_flops((oh, ow), 1, width, width * 4)      # 1x1 expand
             if b == 0:
                 fl += conv_flops((oh, ow), 1, icin, width * 4)   # downsample
+        out[f"layer{stage}"] = fl
         sh, sw = oh, ow
-    return fl
+    return out
+
+
+def resnet_trunk_flops(h: int, w: int, kind: str = "resnet50") -> int:
+    """Conv FLOPs of a bottleneck-ResNet trunk (stem and 4 stages) at h x w."""
+    return sum(resnet_stage_flops(h, w, kind).values())
 
 
 def resnet50_flops(h: int, w: int) -> int:

@@ -17,7 +17,8 @@ kernel within 1 bf16 ulp of the element plus 1 bf16 ulp (2**-8) of the
 output's largest value, on every row, border rows included (the f32 sums run
 in another order and flip bf16 roundings of y1 and y2, which move an output
 by a term of the output's scale, not of the element's), and at least 90% of
-the outputs equal; the top-2 kernel exactly; an artifact exported on the
+the outputs equal; the top-2 kernel exactly; the flat postprocess through
+the NMS kernel equal to it through the plain version; an artifact exported on the
 card equal to eager ``_predict_impl`` bit for bit, and the serve loop over
 it equal to ``predict`` on the same full batches (labels exactly, scores
 within 1e-5, boxes within 1e-3 px).
@@ -201,6 +202,25 @@ def test_nms_kernel_equals_plain(dev, b, k):
     keep = nms_keep_mask(boxes, valid, 0.5)
     assert nms_keep_mask.launches == before + 1
     assert torch.equal(keep, nms_keep_mask_plain(boxes, valid, 0.5))
+
+
+def test_flat_postprocess_kernel_arm_equals_plain_arm(dev):
+    from pytorch_retinanet_tpu_torch.ops import generate_anchors, process_detections_batch
+
+    g = torch.Generator().manual_seed(5)
+    anchors = torch.from_numpy(generate_anchors((256, 384))).to(dev)
+    cls = ((torch.randint(-16, 8, (2, anchors.shape[0], 20), generator=g) * 0.25)
+           .to(dev, torch.bfloat16))  # quarter steps: many ties
+    box = (torch.randn((2, anchors.shape[0], 4), generator=g) * 0.3).to(dev, torch.bfloat16)
+    sizes = torch.tensor([[256.0, 384.0], [200.0, 300.0]], device=dev)
+    before = nms_keep_mask.launches
+    got = process_detections_batch(cls, box, anchors, sizes, pre_nms_top_k=4096)
+    assert nms_keep_mask.launches == before + 1
+    ref = process_detections_batch(cls, box, anchors, sizes, pre_nms_top_k=4096, use_kernel=False)
+    assert nms_keep_mask.launches == before + 1
+    assert got.valid.any()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
 
 
 def test_nms_kernel_edge_cases(dev):
