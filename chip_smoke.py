@@ -209,6 +209,27 @@ Then the flat postprocess and the parity tools (phase 15), at full width:
        arms within JAX's bar of the oracle, the match kernel launched 5
        times in its arm and not in the plain one.
 
+Then the spatial and tensor-parallel meshes (phase 16,
+``parallel/sharding.py``), R50-FPN at full width on two gloo ranks sharing
+the card, as 14b runs them (``spatial_job``, under
+``build/chip_smoke_spatial/``; no figure is a scaling figure):
+
+16. a. the split forward at spatial 2, batch 2 of 800x1344: in f32 (TF32
+       off) every level against the unsplit forward within
+       ``SPLIT_F32_TOL``; in bf16, predict's detections through it against
+       the unsplit forward's (``MERGED_OVERLAP`` at ``SPLIT_BF16_*_TOL``),
+       the NMS kernel launched once in each rank;
+    b. ``build_sharded_forward(data=2)`` on a uint8 batch of 4: the stem
+       kernel launched once a call in each rank, the outputs equal to
+       ``apply_detector`` on the rank's rows bit for bit;
+    c. tensor parallel, model 2, f32: against the unsplit forward within
+       ``SPLIT_F32_TOL``;
+    d. spatial training (data 1, spatial 2, frozen BN): f32 resnet18 at
+       128x192, 2 SGD steps against one process (14b's small bars); R50-FPN
+       bf16 at batch 2, ``SPATIAL_STEPS`` steps: finite losses, match
+       launched 5 times a step in each rank, the ranks' parameters bit for
+       bit, each rank's peak memory and step ms beside one process's.
+
 The last lines are the ``kernels`` JSON, the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -2145,20 +2166,31 @@ def synchronize(dev: torch.device) -> None:
         torch.cuda.synchronize()
 
 
-def full_live_bn_job(rank: int, world: int, params: dict) -> dict:
-    """14b, each rank: R50-FPN live-BN bf16 steps on its rows of seeded
-    uint8 batches; launches, the state digest, the peak memory, step ms."""
+def full_width_job(rank: int, world: int, params: dict) -> dict:
+    """Each rank (14b, 16d), or one process (world 1): R50-FPN bf16 steps on
+    seeded uint8 batches of ``params["batch"]`` rows a data shard, each
+    data-parallel rank its rows, or with ``params["spatial"]`` every rank
+    the whole batch through the height split; launches, the state digest,
+    the peak memory and what was held before the fit (the model's weights,
+    and in one process whatever earlier phases hold), step ms, and in a
+    process group the collectives' ms."""
+    import torch.distributed as dist
+
     mh = tool("torch_multihost_smoke")
     dev = torch.device(params["device"])
     from pytorch_retinanet_tpu_torch import ConfigDict, RetinaNetModel, Trainer
     from pytorch_retinanet_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from pytorch_retinanet_tpu_torch.parallel import make_train_mesh
 
     model = served_model(RetinaNetModel)(ConfigDict(params["hparams"]), device=params["device"])
-    batches = seeded_batches(params["steps"], params["batch"] * world, params["h"], params["w"],
+    spatial = params.get("spatial", 1)
+    shards = 1 if spatial > 1 else world
+    batches = seeded_batches(params["steps"], params["batch"] * shards, params["h"], params["w"],
                              seed=14)
-    model.loader = [mh.rows_of(b, rank, world) for b in batches]
-    trainer = Trainer(devices=params["devices"], max_steps=params["steps"], warmup_steps=500,
-                      log_every_n_steps=1, num_sanity_val_steps=0, logger=False)
+    model.loader = [mh.rows_of(b, rank % shards, shards) for b in batches]
+    mesh = make_train_mesh(params["devices"], spatial=spatial) if spatial > 1 else None
+    trainer = Trainer(devices=params["devices"], mesh=mesh, max_steps=params["steps"],
+                      warmup_steps=500, log_every_n_steps=1, num_sanity_val_steps=0, logger=False)
     step_ms, train_step = [], trainer.train_step
 
     def timed(batch):
@@ -2170,8 +2202,10 @@ def full_live_bn_job(rank: int, world: int, params: dict) -> dict:
         return out
 
     trainer.train_step = timed
+    base = 0
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
     reset_launch_counts()
     trainer.fit(model)
     synchronize(dev)
@@ -2179,8 +2213,9 @@ def full_live_bn_job(rank: int, world: int, params: dict) -> dict:
     out = {"losses": list(trainer.logger_.meters["loss"].window),
            "digest": mh.state_digest(model.net.module),
            "launches": {k.name: k.wrapper.launches for k in KERNELS},
-           "peak_gib": peak, "step_ms": step_ms}
-    out.update(gloo_collective_ms(model.net.module, dev))
+           "peak_gib": peak, "base_gib": base / 2**30, "step_ms": step_ms}
+    if dist.is_initialized():
+        out.update(gloo_collective_ms(model.net.module, dev))
     return out
 
 
@@ -2492,7 +2527,7 @@ def ddp_phases(dev, fitted7: dict, test_ref: tuple) -> None:
 
     live = merged_conf(HPARAMS, {"model": {"freeze_bn": False}})
     out = join_ranks("14b full width (R50-FPN bf16, live BN)", mh.RankRun(
-        full_live_bn_job, {"hparams": live, "device": dev.type, "devices": rank_devices,
+        full_width_job, {"hparams": live, "device": dev.type, "devices": rank_devices,
                            "batch": FULL_RANK_BATCH, "steps": FULL_STEPS, "h": H, "w": W},
         timeout=DDP_TIMEOUT, workdir=os.path.join(work, "full")))
     for r, o in enumerate(out):
@@ -2667,6 +2702,245 @@ def flat_path_phases(dev, heads) -> None:
         f"({time.perf_counter() - t0:.1f} s)")
     log(f"[flat] phase 15 took {time.perf_counter() - t_phase:.1f} s")
 
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the spatial and tensor-parallel meshes (parallel/sharding.py), on
+# two gloo ranks sharing the card, as phase 14b runs them. No figure of this
+# phase is a multi-GPU scaling figure.
+# ---------------------------------------------------------------------------
+SPLIT_NET = {"backbone_kind": "resnet50", "num_classes": 90, "pretrained": False, "prior": 0.5,
+             "seed": 16}
+SPLIT_BATCH = 2  # 16a, 16c; 16b's global batch is twice it, SPLIT_BATCH rows a rank
+# 16a and 16c in f32 (TF32 off) against the unsplit forward: JAX's bar for
+# its sharded forwards (tests/test_sharding.py), absolute and relative.
+SPLIT_F32_TOL = 1e-4
+# 16a in bf16: the detections of the split forward against the unsplit
+# forward's (both through the module's stem, the postprocess's NMS kernel),
+# matched one to one: 14c's overlap bar, at bf16 tolerances (the shards'
+# convolutions run other cuDNN algorithms, and bf16 logits one ulp apart
+# move a score near 0.5 by ~1e-3).
+SPLIT_BF16_BOX_TOL, SPLIT_BF16_SCORE_TOL = 2.0, 1e-2
+# 16d: f32 resnet18 at 128x192 with frozen BN (14b's small run), and
+# R50-FPN bf16 at batch 2, this many steps.
+SPATIAL_STEPS = 3
+
+
+def level_errors(got, want, tol: float) -> tuple:
+    """(largest |got - want|, elements outside tol + tol * |want|) over every level."""
+    worst, outside = 0.0, 0
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        diff = (g.float() - w.float()).abs()
+        worst = max(worst, float(diff.max()))
+        outside += int((diff > tol + tol * w.float().abs()).sum())
+    return worst, outside
+
+
+def detection_records(det) -> list:
+    boxes, scores, labels, valid = (t.cpu().numpy() for t in det)
+    return [{"image_id": i, "category_id": int(labels[i, j]),
+             "bbox": [float(v) for v in boxes[i, j]], "score": float(scores[i, j])}
+            for i in range(len(valid)) for j in np.flatnonzero(valid[i])]
+
+
+def timed_ms(fn, dev, reps: int = 5) -> float:
+    """Median host-clock ms of `fn` over `reps` calls after one, each ended
+    by a synchronize (the ranks run theirs at the same time)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        synchronize(dev)
+        t0 = time.perf_counter()
+        fn()
+        synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def split_forward_job(rank: int, world: int, params: dict) -> dict:
+    """16a-c, each rank: the split forward (spatial 2) in f32 and bf16, the
+    stem sharded over the batch (data 2, uint8), tensor parallel (model 2,
+    f32), each against the unsplit forward in this process."""
+    from pytorch_retinanet_tpu_torch import Retinanet
+    from pytorch_retinanet_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from pytorch_retinanet_tpu_torch.models.retinanet import apply_detector
+    from pytorch_retinanet_tpu_torch.parallel.sharding import (
+        build_sharded_forward, make_inference_mesh, make_split_forward,
+    )
+
+    devices = params["devices"]
+    dev = torch.device("cuda", devices[rank]) if params["device"] == "cuda" else torch.device("cpu")
+    h, w, b = params["h"], params["w"], SPLIT_BATCH
+    rng = np.random.default_rng(16)
+    batch8 = torch.from_numpy(rng.integers(0, 256, (2 * b, h, w, 3), dtype=np.uint8)).to(dev)
+    sizes = torch.tensor([[float(h), float(w)]] * b, device=dev)
+
+    def launches():
+        synchronize(dev)
+        return {k.name: k.wrapper.launches for k in KERNELS}
+
+    out = {}
+    net = Retinanet(compute_dtype="float32", device=dev, **params["net"])
+    images = batch8[:b].float() / 255.0
+    with torch.inference_mode():
+        want = net.module(images, True)
+    # Between gloo ranks tensor parallel gathers every split conv's output
+    # through the host, seconds a forward: its time is the checked call's.
+    for case, mesh, reps in (("16a f32 spatial 2", {"spatial": 2}, 2),
+                             ("16c f32 model 2", {"model": 2}, 0)):
+        forward, place = build_sharded_forward(net.module, make_inference_mesh(devices, **mesh))
+        synchronize(dev)
+        t0 = time.perf_counter()
+        got = forward(place(images))
+        synchronize(dev)
+        out[case] = dict(zip(("max_abs", "outside"), level_errors(got, want, SPLIT_F32_TOL)))
+        out[case]["ms"] = (timed_ms(lambda: forward(images), dev, reps) if reps
+                           else (time.perf_counter() - t0) * 1e3)
+    with torch.inference_mode():
+        out["16a f32 unsplit ms"] = timed_ms(lambda: net.module(images, True), dev, reps=2)
+    del net, want, got, images
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    net = Retinanet(device=dev, **params["net"])
+    split = make_split_forward(net.module, make_inference_mesh(devices, spatial=2))
+    unsplit = lambda x, return_levels: net.module(x, return_levels)  # noqa: E731
+    images = batch8[:b]
+    reset_launch_counts()
+    got = net._predict_impl(images, sizes, forward=split)
+    out["16a bf16 launches"] = launches()
+    want = net._predict_impl(images, sizes, forward=unsplit)
+    out["16a bf16 records"] = detection_records(got)
+    out["16a bf16 records unsplit"] = detection_records(want)
+    with torch.inference_mode(), net._mode(False):
+        out["16a bf16 ms"] = timed_ms(lambda: split(images, True), dev)
+        out["16a bf16 unsplit ms"] = timed_ms(lambda: unsplit(images, True), dev)
+
+    forward, place = build_sharded_forward(net.module, make_inference_mesh(devices, data=2))
+    rows = place(batch8)
+    reset_launch_counts()
+    got = forward(rows)
+    out["16b launches"] = launches()
+    with torch.inference_mode(), net._mode(False):
+        want = apply_detector(net.module, rows, return_levels=True)
+    out["16b bit for bit"] = all(torch.equal(g, v) for g, v in zip(got[0] + got[1],
+                                                                    want[0] + want[1]))
+    out["16b rows"] = list(rows.shape)
+    return out
+
+
+def spatial_job(rank: int, world: int, params: dict) -> dict:
+    """Phase 16, each rank: :func:`split_forward_job`, then 16d's runs:
+    the small f32 run (``job_train`` on the spatial mesh; rank 0 saves its
+    first step's state) and R50-FPN bf16 (:func:`full_width_job`)."""
+    mh = tool("torch_multihost_smoke")
+    out = {"forward": split_forward_job(rank, world, params)}
+    if params["device"] == "cuda":
+        torch.cuda.empty_cache()
+    out["small"] = mh.job_train(rank, world, params["small"])
+    out["full"] = full_width_job(rank, world, params["full"])
+    return out
+
+
+def spatial_phases(dev) -> None:
+    """Phase 16: two gloo ranks sharing the card run the split forward, the
+    stem sharded over the batch, tensor parallel (16a-c) and spatial
+    training (16d), each against one process."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    mh = tool("torch_multihost_smoke")
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_spatial")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(os.path.join(work, "small"))
+    devices = [dev.index or 0] * 2 if dev.type == "cuda" else ["cpu"] * 2
+    state = mh.seeded_state(SMALL_NET, seed=3)
+    rng = np.random.default_rng(8)
+    batches = []
+    for n_valid in ([5, 0, 3, 1], [2, 4, 0, 6]):
+        boxes, labels, valid = seeded_gt(rng, n_valid, 128, 192)
+        batches.append({"images": rng.random((4, 128, 192, 3), dtype=np.float32),
+                        "boxes": boxes, "labels": labels, "valid": valid})
+    torch.save({"batches": batches, "state": state}, os.path.join(work, "small_data.pt"))
+    small_run = {"model": {**SMALL_NET, "freeze_bn": True}, "optimizer": SMALL_OPTIMIZER,
+                 "trainer": {"max_steps": 2}, "spatial": 2}
+    full = {"hparams": HPARAMS, "device": dev.type, "devices": devices, "batch": SPLIT_BATCH,
+            "steps": SPATIAL_STEPS, "h": H, "w": W, "spatial": 2}
+    out = join_ranks("16 (two gloo ranks, spatial and tensor-parallel meshes)", mh.RankRun(
+        spatial_job, {"device": dev.type, "devices": devices, "net": SPLIT_NET, "h": H, "w": W,
+                      "small": {"data": os.path.join(work, "small_data.pt"),
+                                "runs": {"spatial": small_run}, "device": dev.type,
+                                "devices": devices, "workdir": os.path.join(work, "small")},
+                      "full": full},
+        timeout=DDP_TIMEOUT, workdir=work))
+
+    bad = []
+    for r, o in enumerate(out):
+        f = o["forward"]
+        for case in ("16a f32 spatial 2", "16c f32 model 2"):
+            log(f"[spatial] {case} rank {r}: R50-FPN 90 classes, {SPLIT_BATCH} x {H}x{W} f32 (TF32 "
+                f"off) against the unsplit forward: max |diff| {f[case]['max_abs']:.3g}, "
+                f"{f[case]['outside']} values outside {SPLIT_F32_TOL} + {SPLIT_F32_TOL} x |value|")
+            if f[case]["outside"]:
+                bad.append(f"rank {r} {case}")
+        recs, ref = f["16a bf16 records"], f["16a bf16 records unsplit"]
+        overlap = mh.records_overlap(recs, ref, SPLIT_BF16_BOX_TOL, SPLIT_BF16_SCORE_TOL)
+        strict = mh.records_overlap(recs, ref)
+        log(f"[spatial] 16a bf16 rank {r}: predict's detections through the split forward against "
+            f"the unsplit forward's: {len(recs)} vs {len(ref)} records, overlap {overlap:.4f} at "
+            f"box {SPLIT_BF16_BOX_TOL} px / score {SPLIT_BF16_SCORE_TOL} (bar {MERGED_OVERLAP}; "
+            f"{strict:.4f} at 1e-3 px / 1e-5); launches {f['16a bf16 launches']}")
+        if overlap < MERGED_OVERLAP or len(recs) != len(ref) \
+                or f["16a bf16 launches"]["nms_keep_mask"] != 1:
+            bad.append(f"rank {r} 16a bf16")
+        log(f"[spatial] 16b rank {r}: build_sharded_forward(data=2) on its rows {f['16b rows']} of "
+            f"a uint8 batch of {2 * SPLIT_BATCH}: launches {f['16b launches']}; equal to "
+            f"apply_detector on those rows bit for bit: {f['16b bit for bit']}")
+        if f["16b launches"]["fused_stem"] != 1 or not f["16b bit for bit"]:
+            bad.append(f"rank {r} 16b")
+        log(f"[time] 16a-c rank {r} (2 gloo ranks on one card; host clock): split forward bf16 "
+            f"{f['16a bf16 ms']:.1f} ms against unsplit {f['16a bf16 unsplit ms']:.1f} ms (medians "
+            f"of 5); f32 split {f['16a f32 spatial 2']['ms']:.1f} ms against unsplit "
+            f"{f['16a f32 unsplit ms']:.1f} ms (medians of 2); model 2 "
+            f"{f['16c f32 model 2']['ms']:.1f} ms (its one checked call)")
+
+    c = mh.train_against_one_process(os.path.join(work, "small"), "spatial", small_run, batches,
+                                     state, [o["small"] for o in out], dev.type, SMALL_LOSS_RTOL,
+                                     SMALL_UPDATE_RTOL)
+    log(f"[spatial] 16d small: spatial 2 (2 gloo ranks, one card, each its rows of the trunk) "
+        f"against one process, f32 resnet18 128x192 frozen BN, 2 SGD steps: losses "
+        f"{c['losses']} vs {c['single']} (worst {c['loss_rel_err']:.2e} rel, limit "
+        f"{SMALL_LOSS_RTOL}); first step's update gap {c['update_gap_of_bound']:.3f} of the bound "
+        f"({SMALL_UPDATE_RTOL} of the tensor's largest update + 2 ulp) at {c['worst_tensor']}; "
+        f"ranks bit for bit {c['ranks_bit_for_bit']}")
+    if not c["loss_ok"] or c["update_gap_of_bound"] > 1.0 or not c["ranks_bit_for_bit"]:
+        bad.append("16d small")
+
+    torch.cuda.empty_cache()
+    one = full_width_job(0, 1, {**full, "spatial": 1, "devices": devices[:1]})
+    for r, o in enumerate(out):
+        f = o["full"]
+        log(f"[spatial] 16d full rank {r}: R50-FPN bf16 frozen BN, batch {SPLIT_BATCH} at {H}x{W}, "
+            f"spatial 2: losses {['%.5f' % v for v in f['losses']]}; launches {f['launches']}; "
+            f"peak {f['peak_gib'] - f['base_gib']:.2f} GiB above the weights (one process "
+            f"{one['peak_gib'] - one['base_gib']:.2f}); step ms "
+            f"{['%.1f' % v for v in f['step_ms']]} (one process "
+            f"{['%.1f' % v for v in one['step_ms']]})")
+        if not np.isfinite(f["losses"]).all() \
+                or f["launches"]["match_targets"] != 5 * SPATIAL_STEPS:
+            bad.append(f"rank {r} 16d full")
+    if out[0]["full"]["digest"] != out[1]["full"]["digest"]:
+        bad.append("16d full: the ranks' parameters differ")
+    o = out[0]["full"]
+    log(f"[time] 16d R50-FPN bf16 batch {SPLIT_BATCH}, spatial 2 on 2 gloo ranks sharing one card "
+        f"(not a scaling figure): step median {np.median([v for x in out for v in x['full']['step_ms'][1:]]):.1f} "
+        f"ms (steps 2-{SPATIAL_STEPS}, both ranks) against one process "
+        f"{np.median(one['step_ms'][1:]):.1f} ms; gloo all-reduce of the {o['n_params']} f32 "
+        f"gradients alone {o['grads_ms']:.1f} ms")
+    if bad:
+        raise SystemExit(f"[spatial] phase 16: {bad}")
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"[spatial] phase 16 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def record_key(r: dict) -> tuple:
@@ -2926,6 +3200,8 @@ def main() -> int:
     ddp_phases(dev, fitted7, test_ref)
     torch.cuda.empty_cache()
     flat_path_phases(dev, flat_heads)
+    torch.cuda.empty_cache()
+    spatial_phases(dev)
 
     log(json.dumps({"kernels": [results[k.name] for k in KERNELS]}))
     print(smi)

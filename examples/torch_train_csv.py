@@ -7,8 +7,14 @@ fit -> test). Checkpoints land in ``--checkpoint-dir`` (``last/``,
     python examples/torch_train_csv.py --csv train.csv --val-csv val.csv \\
         --num-classes 4 --epochs 10
 
-The JAX example's ``--spatial`` (image height sharded over chips) has no
-counterpart: the port trains on one card.
+``--spatial N`` splits each image's height over N ranks (one process a
+rank, frozen BN; the batch size is a data shard's), as the JAX example's
+flag splits it over N chips. Start the ranks with torchrun, which names the
+world to ``parallel.init_distributed``:
+
+    torchrun --nproc_per_node 2 examples/torch_train_csv.py --spatial 2 ...
+    torchrun --nproc_per_node 2 examples/torch_train_csv.py --spatial 2 \\
+        --device cpu --compute-dtype float32 ...             # gloo ranks on the CPU
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from pytorch_retinanet_tpu_torch import OmegaConf, RetinaNetModel, Trainer
+from pytorch_retinanet_tpu_torch import OmegaConf, RetinaNetModel, Trainer, parallel
 from pytorch_retinanet_tpu_torch.utils import seed_everything
 
 
@@ -37,6 +43,11 @@ def main() -> None:
     ap.add_argument("--max-size", type=int, default=1333)
     ap.add_argument("--checkpoint-dir", default="checkpoints")
     ap.add_argument("--seed", type=int, default=123)
+    ap.add_argument(
+        "--spatial", type=int, default=1,
+        help="split each image's height over N ranks while training (frozen BN only; "
+        "start the ranks with torchrun); the data axis is the world size over N",
+    )
     ap.add_argument(
         "--accumulate", type=int, default=1,
         help="gradient accumulation window (Lightning accumulate_grad_batches "
@@ -88,11 +99,18 @@ def main() -> None:
         }
     )
 
+    kwargs = {}
+    if args.spatial > 1:
+        cpu = args.device == "cpu"
+        parallel.init_distributed(backend="gloo" if cpu else None)
+        kwargs["mesh"] = parallel.make_train_mesh(
+            ["cpu"] * parallel.get_world_size() if cpu else None, spatial=args.spatial)
     model = RetinaNetModel(conf, device=args.device)
     trainer = Trainer(
         max_epochs=args.epochs,
         checkpoint_dir=args.checkpoint_dir,
         accumulate_grad_batches=args.accumulate,
+        **kwargs,
     )
     metrics = trainer.fit(model)
     print("train metrics:", {k: round(v, 4) for k, v in metrics.items()})

@@ -50,6 +50,17 @@ totals and test detections merge through ``all_gather_objects``, and every
 rank gets the same metrics and AP. Rank 0 alone writes checkpoints and
 logs, and every rank waits for the save; every rank reads a resume.
 ``predict`` is not sharded: each rank predicts the whole loader, as in JAX.
+
+Spatial training (a ``mesh`` from ``parallel.make_train_mesh(spatial=S)``,
+frozen batch norm only, as in JAX): the ``S`` spatial ranks of one data
+shard read the same loader shard (the data index's) and run the height-split
+forward (``parallel/sharding.py::make_split_forward``), each its rows of
+the trunk, then the FPN, head and loss in full. DDP averages every gradient
+over all ranks; the trunk's, which are partial sums over the spatial ranks'
+rows, are then multiplied by ``S`` (the FPN's and head's are equal on the
+spatial ranks): the result is the spatial sum, averaged over the data
+shards. Validation totals and test detections count the spatial index 0
+of each data shard once.
 """
 
 from __future__ import annotations
@@ -81,6 +92,7 @@ from ..parallel import (
     reduce_dict,
 )
 from ..ops.boxes import rescale_boxes
+from ..parallel.sharding import make_split_forward
 from ..utils.metrics import MetricLogger, ProfilerHook, device_memory_stats
 from .callbacks import Callback, ModelCheckpoint, _ExperimentLogger
 from .model import RetinaNetModel
@@ -211,6 +223,7 @@ class Trainer:
         self._warmup_eff = warmup_steps
         self._model: Optional[RetinaNetModel] = None
         self._ddp: Optional[DistributedDataParallel] = None
+        self._split = None
         self._optimizer = None
         self._scheduler = None
         self._sched_meta: Dict[str, Any] = {}
@@ -259,12 +272,31 @@ class Trainer:
     def _device_batch(self, batch: Dict[str, Any]) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
         return self._upload(batch, "images", "boxes", "labels", "valid")
 
+    @property
+    def _spatial(self) -> int:
+        return self.mesh.spatial_size if self.mesh is not None else 1
+
+    def _detector(self):
+        """The module, or on a spatial mesh its height-split forward (made
+        once for the module)."""
+        module = self._model.net.module
+        if self._spatial == 1:
+            return module
+        if self._split is None or self._split.module is not module:
+            self._split = make_split_forward(module, self.mesh)
+        return self._split
+
+    def _counted(self) -> bool:
+        """Whether this rank's validation totals and detections count: the
+        spatial index 0 of each data shard (the others hold the same)."""
+        return self._spatial == 1 or self.mesh.axis_index("spatial") == 0
+
     def _losses(self, batch: Dict[str, Any], reduction: str, forward=None) -> Dict[str, Tensor]:
-        """The batch's losses through `forward` (the module, or its DDP
-        wrapper, whose forward arms the gradient all-reduce)."""
+        """The batch's losses through `forward` (:meth:`_detector`, or its
+        DDP wrapper, whose forward arms the gradient all-reduce)."""
         net = self._model.net
         images, boxes, labels, valid = self._device_batch(batch)
-        cls_levels, box_levels = (forward or net.module)(images, return_levels=True)
+        cls_levels, box_levels = (forward or self._detector())(images, return_levels=True)
         losses = retinanet_loss_levels(
             cls_levels, box_levels, net._anchors_for(tuple(images.shape[1:3])),
             boxes, labels, valid, num_classes=net.num_classes, reduction=reduction,
@@ -284,6 +316,8 @@ class Trainer:
         with contextlib.nullcontext() if sync else self._ddp.no_sync():
             losses = self._losses(batch, "mean", self._ddp)
             losses["loss"].backward()
+        if sync:
+            self._sum_trunk_over_spatial()
         if isinstance(self._optimizer, GradientAccumulation):
             self._optimizer.step()
         else:
@@ -292,6 +326,14 @@ class Trainer:
             self._optimizer.step()
             self._optimizer.zero_grad(set_to_none=True)
         return {k: v.detach() for k, v in losses.items()}
+
+    def _sum_trunk_over_spatial(self) -> None:
+        """After DDP's average over every rank, the trunk's gradients times
+        the spatial size: their spatial sum, averaged over the data shards."""
+        if self._spatial > 1 and self._ddp is not None:
+            for p in self._model.net.module.backbone.parameters():
+                if p.grad is not None:
+                    p.grad.mul_(self._spatial)
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, Any]) -> Dict[str, Tensor]:
@@ -376,11 +418,24 @@ class Trainer:
         return plan if plan.group is not None else None
 
     def _shard(self) -> Dict[str, int]:
-        return {"shard": get_rank(), "num_shards": get_world_size()}
+        """This rank's loader shard: its data index (the spatial ranks of a
+        data shard read the same images and augmentation draws)."""
+        if self.mesh is None:
+            return {"shard": get_rank(), "num_shards": get_world_size()}
+        return {"shard": self.mesh.axis_index("data"), "num_shards": self.mesh.data_size}
 
     def fit(self, model: RetinaNetModel) -> Dict[str, float]:
         """Train: ``max_epochs`` epochs or ``max_steps`` optimizer steps."""
         self._model = model
+        if self._spatial > 1 and not model.net.freeze_bn:
+            # validate / test / predict run on the running statistics and
+            # work on any mesh; only training would need the batch
+            # statistics reduced across the spatial ranks.
+            raise ValueError(
+                "spatial-parallel training requires freeze_bn=True (the "
+                "default, and the reference's): live batch statistics would "
+                "need axis-aware cross-shard reduction. Build the model with "
+                "freeze_bn=True or use a data-only mesh.")
         plan = self._data_parallel(model)
         if (self.logger in self._rank_callbacks()
                 and getattr(model, "hparams", None) is not None):
@@ -414,7 +469,7 @@ class Trainer:
             # buffers are constant: nothing to broadcast before a forward.
             dev = plan.device
             self._ddp = DistributedDataParallel(
-                model.net.module, device_ids=[dev.index] if dev.type == "cuda" else None,
+                self._detector(), device_ids=[dev.index] if dev.type == "cuda" else None,
                 process_group=plan.group, **_NO_BUFFER_SYNC)
 
         train_loader = model.train_dataloader(**self._shard())
@@ -601,6 +656,7 @@ class Trainer:
         if self._ddp is not None and self._optimizer.mini_step:
             # A partial window's micro-batches all ran under no_sync.
             average_gradients(self._model.net.module.parameters(), self._ddp.process_group)
+            self._sum_trunk_over_spatial()
         mini = self._optimizer.mini_step
         if not self._optimizer.flush():
             return
@@ -645,7 +701,7 @@ class Trainer:
             for k, v in losses.items():
                 totals[k] = totals.get(k, 0.0) + float(v.cpu().numpy()[mask].sum())
             count += int(mask.sum())
-        shards = all_gather_objects((totals, count))
+        shards = all_gather_objects((totals, count) if self._counted() else ({}, 0))
         keys = dict.fromkeys(k for t, _ in shards for k in t)
         totals = {k: sum(t.get(k, 0.0) for t, _ in shards) for k in keys}
         count = sum(c for _, c in shards)
@@ -672,7 +728,10 @@ class Trainer:
         original size, keyed by image id; padding rows are dropped."""
         net = self._model.net
         images, sizes, orig = self._upload(batch, "images", "image_sizes", "orig_sizes")
-        det = net._predict_impl(images, sizes)
+        if self._spatial == 1:
+            det = net._predict_impl(images, sizes)
+        else:
+            det = net._predict_impl(images, sizes, forward=self._detector())
         boxes = rescale_boxes(det.boxes, sizes[:, None, :], orig[:, None, :])
         boxes, scores, labels, valid = (t.cpu().numpy() for t in (boxes, *det[1:]))
         ids = np.asarray(torch.as_tensor(batch["image_ids"]))
@@ -698,7 +757,9 @@ class Trainer:
         for bi, batch in enumerate(self.logger_.log_every(loader, header="test")):
             if bi >= limit:
                 break
-            evaluator.update(self._predict_batch(batch))
+            detections = self._predict_batch(batch)
+            if self._counted():
+                evaluator.update(detections)
         evaluator.synchronize_between_processes(all_gather_objects)
         evaluator.accumulate()
         stats = evaluator.summarize()

@@ -25,7 +25,6 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -150,8 +149,10 @@ class ResNet(nn.Module):
         """The unfused stem: conv 7x7 s2 (or its space-to-depth form), BN,
         ReLU, max pool 3x3 s2."""
         if self.stem_s2d:
-            x = F.pad(space_to_depth_2x(x), (2, 1, 2, 1))
-        return max_pool_torch(self.bn1(conv(self.conv1, x), relu=True), 3, 2)
+            x = conv(self.conv1, space_to_depth_2x(x), pad=((2, 1), (2, 1)))
+        else:
+            x = conv(self.conv1, x)
+        return max_pool_torch(self.bn1(x, relu=True), 3, 2)
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         """A 7x7 ``conv1.weight`` (the reference schema) loads into the s2d

@@ -11,6 +11,10 @@ Conventions of the port, mirroring ``pytorch_retinanet_tpu/models/layers.py``:
   mode) normalizes with the batch's statistics and updates the running ones
   as flax's ``nn.BatchNorm`` does; in a process group of more than one rank
   the statistics are the global batch's, as JAX's over a data-sharded batch.
+* Inside :func:`splitting`, :func:`conv` and :func:`max_pool_torch` run
+  on this rank's part of a split (``parallel/sharding.py``): its rows of
+  the height, with halo rows from the neighbouring ranks, and its output
+  channels of a conv whose weight is split.
 """
 
 from __future__ import annotations
@@ -29,10 +33,18 @@ from ..parallel import get_world_size
 Tensor = torch.Tensor
 
 
-def conv(layer: nn.Conv2d, x: Tensor) -> Tensor:
-    """Apply `layer` in the dtype of `x`, with torch-style symmetric padding."""
+def conv(layer: nn.Conv2d, x: Tensor, pad=None) -> Tensor:
+    """Apply `layer` in the dtype of `x`, with torch-style symmetric padding,
+    or `pad` = ((top, bottom), (left, right)) zeros in its place."""
+    split = getattr(_SPLIT, "on", None)
+    if split is not None:
+        return split.conv(layer, x, pad)
+    padding = layer.padding
+    if pad is not None:
+        (top, bottom), (left, right) = pad
+        x, padding = F.pad(x, (left, right, top, bottom)), 0
     bias = None if layer.bias is None else layer.bias.to(x.dtype)
-    return F.conv2d(x, layer.weight.to(x.dtype), bias, layer.stride, layer.padding)
+    return F.conv2d(x, layer.weight.to(x.dtype), bias, layer.stride, padding)
 
 
 def conv_layer(cin: int, cout: int, k: int, stride: int = 1, bias: bool = False) -> nn.Conv2d:
@@ -41,19 +53,40 @@ def conv_layer(cin: int, cout: int, k: int, stride: int = 1, bias: bool = False)
 
 
 _RECOMPUTE = threading.local()
+_SPLIT = threading.local()
 
 
 @contextlib.contextmanager
-def recomputing():
-    """Marks a rematerialized forward (the recompute in backward of
-    ``torch.utils.checkpoint``): live batch norms leave their running
-    statistics alone inside it, so that a step updates them once."""
-    prev = getattr(_RECOMPUTE, "on", False)
-    _RECOMPUTE.on = True
+def splitting(split):
+    """Run :func:`conv` and :func:`max_pool_torch` through `split` (an object
+    with their signatures as ``conv`` and ``max_pool`` methods; None for
+    none) on this thread."""
+    prev = getattr(_SPLIT, "on", None)
+    _SPLIT.on = split
     try:
         yield
     finally:
+        _SPLIT.on = prev
+
+
+@contextlib.contextmanager
+def _recompute(split):
+    prev = getattr(_RECOMPUTE, "on", False)
+    _RECOMPUTE.on = True
+    try:
+        with splitting(split):
+            yield
+    finally:
         _RECOMPUTE.on = prev
+
+
+def recomputing():
+    """Marks a rematerialized forward (the recompute in backward of
+    ``torch.utils.checkpoint``): live batch norms leave their running
+    statistics alone inside it, so that a step updates them once. Made at
+    the forward, it recomputes inside the split the forward ran in (the
+    recompute's exchanges run in the same order on every rank)."""
+    return _recompute(getattr(_SPLIT, "on", None))
 
 
 class BatchNorm2d(nn.Module):
@@ -223,6 +256,9 @@ def stem_weight_from_s2d(w4: Tensor, atol: float = 1e-6) -> Tensor:
 
 def max_pool_torch(x: Tensor, window: int, stride: int) -> Tensor:
     """Max pool with symmetric ``(window - 1) // 2`` padding (-inf padded)."""
+    split = getattr(_SPLIT, "on", None)
+    if split is not None:
+        return split.max_pool(x, window, stride)
     return F.max_pool2d(x, window, stride, (window - 1) // 2)
 
 

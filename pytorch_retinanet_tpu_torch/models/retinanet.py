@@ -146,6 +146,16 @@ def stem_constants(module: RetinaNetModule, dtype: torch.dtype):
     return module.mean, module.std
 
 
+def fused_stem(module: RetinaNetModule, images: Tensor) -> Tensor:
+    """The fused stem kernel on `images` (uint8 or f32 NHWC) with the
+    module's 7x7 weight and folded running statistics: the NHWC bf16 input
+    of ``module(images, stem_in=...)``."""
+    resnet = module.backbone.backbone
+    scale, shift = resnet.bn1.folded()
+    return stem_forward(images, *stem_constants(module, images.dtype), resnet.conv1.weight,
+                        scale, shift)
+
+
 def apply_detector(
     module: RetinaNetModule,
     images: Tensor,
@@ -167,12 +177,9 @@ def apply_detector(
         use_fused_stem = fused_stem_applicable(module, images.shape)
     if not use_fused_stem:
         return module(images, return_levels)
-    resnet = module.backbone.backbone
-    scale, shift = resnet.bn1.folded()
-    stem = stem_forward(images, *stem_constants(module, images.dtype), resnet.conv1.weight,
-                        scale, shift)
+    stem = fused_stem(module, images)
     if use_fused_trunk and fused_trunk_applicable(module.backbone_kind):
-        feats = apply_trunk_fused(resnet, stem, module.backbone_kind)
+        feats = apply_trunk_fused(module.backbone.backbone, stem, module.backbone_kind)
         return module(images, return_levels, feats_in=feats)
     return module(images, return_levels, stem_in=stem)
 
@@ -388,14 +395,20 @@ class Retinanet:
 
     @torch.inference_mode()
     def _predict_impl(
-        self, images: Tensor, image_sizes: Tensor, anchors: Optional[List[Tensor]] = None
+        self, images: Tensor, image_sizes: Tensor, anchors: Optional[List[Tensor]] = None,
+        forward=None,
     ) -> Detections:
         """Padded [B, H, W, 3] batch and [B, 2] resized sizes -> batched
         detections, in eval mode (running statistics, as JAX's train=False).
         `anchors` defaults to the batch's bucket's; the export passes its
-        own buffers of them."""
+        own buffers of them. `forward` (``forward(images, return_levels=True)``)
+        replaces :func:`apply_detector`: the ``Trainer`` passes a spatial
+        mesh's split forward."""
         with self._mode(False):
-            cls_levels, box_levels = apply_detector(self.module, images, return_levels=True)
+            if forward is None:
+                cls_levels, box_levels = apply_detector(self.module, images, return_levels=True)
+            else:
+                cls_levels, box_levels = forward(images, return_levels=True)
         return process_detections_multilevel_batch(
             cls_levels,
             box_levels,

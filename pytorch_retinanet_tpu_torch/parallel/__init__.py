@@ -9,9 +9,11 @@ Trainer wraps the module in ``DistributedDataParallel`` over a
 default group (``models/layers.py``); evaluation merges through
 :func:`all_gather_objects`.
 
-Spatial splits (JAX's ``(data, spatial)`` training mesh and the inference
-meshes of ``parallel/sharding.py``) are not here: ``make_train_mesh(spatial > 1)``
-raises.
+A plan may also split one image over ranks, as JAX's named meshes do: a
+``(data, spatial, model)`` layout, one process group for each line of each
+axis (:func:`make_train_mesh` for spatial training,
+``parallel/sharding.py::make_inference_mesh`` for inference). The height
+split, its halo exchange and the channel split are in ``parallel/sharding.py``.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import socket
-from typing import Any, List, Optional, Sequence
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -99,15 +101,51 @@ def is_main_process() -> bool:
     return get_rank() == 0
 
 
+AXES = ("data", "spatial", "model")
+
+
 @dataclasses.dataclass(frozen=True)
 class MeshPlan:
-    """This rank's place in a data-parallel run: the process group (None
-    without one), the rank's device, and ``data_size`` ranks along the batch
-    (one device each; there is no spatial axis)."""
+    """This rank's place in a run: the default process group (None without
+    one), the rank's device, and the mesh's axes.
+
+    A mesh lays ranks out data-outermost, as JAX's ``make_inference_mesh``
+    lays out devices: rank ``(d * spatial_size + s) * model_size + m`` sits
+    at ``coords == (d, s, m)``. ``data_size`` ranks take their own rows of
+    the batch; the ``spatial_size`` ranks of one data shard split each
+    image's height; the ``model_size`` ranks of one spatial shard split the
+    convolutions' output channels. A data-only plan (:func:`make_mesh`) has
+    no ``axis_groups``: its data axis is ``group`` itself.
+    """
 
     group: Any
     device: torch.device
     data_size: int
+    spatial_size: int = 1
+    model_size: int = 1
+    coords: Tuple[int, int, int] = (0, 0, 0)
+    axis_groups: Tuple[Any, ...] = dataclasses.field(default=(), compare=False)
+
+    @property
+    def num_devices(self) -> int:
+        return self.data_size * self.spatial_size * self.model_size
+
+    def axis_size(self, name: str) -> int:
+        return (self.data_size, self.spatial_size, self.model_size)[AXES.index(name)]
+
+    def axis_index(self, name: str) -> int:
+        """This rank's coordinate along `name`."""
+        return self.coords[AXES.index(name)]
+
+    def axis_group(self, name: str) -> Any:
+        """The process group of this rank's line along `name`: the ranks of
+        the mesh whose other coordinates are this rank's (a group of one
+        along an axis of size 1). A data-only plan's data axis is ``group``."""
+        if not self.axis_groups:
+            if name != "data":
+                raise ValueError(f"a data-only plan has no {name!r} axis group")
+            return self.group
+        return self.axis_groups[AXES.index(name)]
 
 
 def _as_device(d: Any) -> torch.device:
@@ -115,12 +153,9 @@ def _as_device(d: Any) -> torch.device:
     return torch.device("cuda", d) if isinstance(d, int) else torch.device(d)
 
 
-def make_mesh(devices: Optional[Sequence[Any]] = None) -> MeshPlan:
-    """The data-parallel plan of this rank: rank r runs on ``devices[r]``
-    (CUDA indices, device strings or ``torch.device``s, one per rank;
-    several ranks may name one device), or on the current CUDA device when
-    ``devices`` is None."""
-    world = get_world_size()
+def _rank_device(devices: Optional[Sequence[Any]], world: int) -> torch.device:
+    """This rank's entry of `devices` (one per rank), or the current CUDA
+    device when `devices` is None."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("make_mesh: no devices given and CUDA is not available; pass "
@@ -134,10 +169,53 @@ def make_mesh(devices: Optional[Sequence[Any]] = None) -> MeshPlan:
         device = _as_device(devices[get_rank()])
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def make_mesh(devices: Optional[Sequence[Any]] = None) -> MeshPlan:
+    """The data-parallel plan of this rank: rank r runs on ``devices[r]``
+    (CUDA indices, device strings or ``torch.device``s, one per rank;
+    several ranks may name one device), or on the current CUDA device when
+    ``devices`` is None."""
+    world = get_world_size()
+    device = _rank_device(devices, world)
     group = dist.group.WORLD if dist.is_initialized() else None
     if group is not None and dist.get_backend(group) == "nccl" and device.type != "cuda":
         raise ValueError(f"make_mesh: an NCCL group needs CUDA devices, got {device}")
-    return MeshPlan(group, device, world)
+    return MeshPlan(group, device, world, coords=(get_rank(), 0, 0))
+
+
+def mesh_plan(devices: Optional[Sequence[Any]], data: int, spatial: int,
+              model: int) -> Optional[MeshPlan]:
+    """The ``(data, spatial, model)`` plan of this rank over the first
+    ``data * spatial * model`` ranks, with a process group for every line
+    of every axis. Every rank of the world must call it (``dist.new_group``
+    is collective, and every rank makes every group in the same order);
+    a rank past the mesh gets None, as ``dist.new_group`` gives a rank
+    outside a group none. Raises, as JAX's meshes do, when the world has
+    fewer ranks than the mesh needs."""
+    world = get_world_size()
+    need = data * spatial * model
+    if min(data, spatial, model) < 1 or world < need:
+        raise ValueError(f"mesh {data}x{spatial}x{model} needs {need} devices, have {world}")
+    if spatial == model == 1 and need == world:
+        return make_mesh(devices)
+    device = _rank_device(devices, world)
+    if dist.get_backend() == "nccl" and device.type != "cuda":
+        raise ValueError(f"mesh_plan: an NCCL group needs CUDA devices, got {device}")
+    sizes = (data, spatial, model)
+    grid = np.arange(need).reshape(sizes)
+    rank = get_rank()
+    mine = [None, None, None]
+    for axis in range(3):
+        for line in np.moveaxis(grid, axis, -1).reshape(-1, sizes[axis]):
+            group = dist.new_group([int(r) for r in line])
+            if rank in line:
+                mine[axis] = group
+    if rank >= need:
+        return None
+    coords = tuple(int(c) for c in np.unravel_index(rank, sizes))
+    return MeshPlan(dist.group.WORLD, device, data, spatial, model, coords, tuple(mine))
 
 
 def make_train_mesh(
@@ -145,18 +223,29 @@ def make_train_mesh(
     *,
     spatial: int = 1,
     data: Optional[int] = None,
-) -> MeshPlan:
-    """A training plan over every rank, with JAX's signature: ``data``, if
-    given, must be the world size (code written for the JAX package passes
-    it), and ``spatial > 1`` (JAX's height split of training) is ROADMAP A14."""
-    if spatial > 1:
-        raise NotImplementedError(
-            f"make_train_mesh(spatial={spatial}): spatial splits are ROADMAP A14, not ported")
+) -> Optional[MeshPlan]:
+    """A ``(data, spatial)`` training plan, with JAX's signature and checks:
+    batch rows over ``data`` ranks, each image's height over ``spatial``.
+
+    At ``spatial=1`` it is :func:`make_mesh`'s plan, and ``data``, if given,
+    must be the world size. At ``spatial > 1``, ``data`` defaults to the
+    world size over ``spatial``, the mesh takes the first ``data * spatial``
+    ranks (a rank past them gets None) and raises where there are fewer.
+    Spatial training spreads one image's trunk FLOPs and activation memory
+    over the spatial ranks; it needs frozen batch norm, which the
+    ``Trainer`` enforces.
+    """
     world = get_world_size()
-    if data is not None and data != world:
-        raise ValueError(f"make_train_mesh: data axis {data} != world size {world} (one rank "
-                         "per device along the batch)")
-    return make_mesh(devices)
+    if spatial <= 1:
+        if data is not None and data != world:
+            raise ValueError(f"make_train_mesh: data axis {data} != world size {world} (one "
+                             "rank per device along the batch)")
+        return make_mesh(devices)
+    if data is None:
+        data = world // spatial
+    if data < 1 or world < data * spatial:
+        raise ValueError(f"mesh {data}x{spatial} needs {data * spatial} devices, have {world}")
+    return mesh_plan(devices, data, spatial, 1)
 
 
 def all_gather_objects(obj: Any) -> List[Any]:

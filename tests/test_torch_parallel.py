@@ -16,8 +16,10 @@
   (targets and per-image losses).
 * A non-finite loss on one rank ends both ranks non-zero, each with the
   Trainer's ``FloatingPointError``, within the join timeout.
-* Errors: ``make_train_mesh(spatial=2)`` raises naming ROADMAP A14; a
-  ``devices`` list whose length is not the world size raises, from
+* ``make_train_mesh(spatial=2)`` on the two ranks builds a (data 1,
+  spatial 2) plan, each rank at its coordinates, and a data axis the world
+  cannot hold raises JAX's message.
+* Errors: a ``devices`` list whose length is not the world size raises, from
   ``make_mesh`` and from ``Trainer(devices=...)``; a Trainer whose device is
   not the model's raises.
 """
@@ -27,6 +29,7 @@ from __future__ import annotations
 import os
 import sys
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -113,9 +116,16 @@ def test_mesh_plan_without_a_group():
 # ---------------------------------------------------------------------------- #
 # Errors
 # ---------------------------------------------------------------------------- #
-def test_spatial_train_mesh_raises_naming_a14():
-    with pytest.raises(NotImplementedError, match="A14"):
-        parallel.make_train_mesh(["cpu"], spatial=2)
+def test_spatial_train_mesh_raises_naming_a14(ranks):
+    """Spatial training meshes are ported (the name is the one the test had
+    while they raised): the plan builds on the two ranks and a ``Trainer``
+    takes it, and a wrong ``data`` raises what JAX's ``make_train_mesh``
+    raises on two devices."""
+    with pytest.raises(ValueError) as e:
+        jax_parallel.make_train_mesh(jax.devices()[:2], spatial=2, data=2)
+    for r, res in enumerate(ranks):
+        assert res["train_mesh"]["spatial"] == {"sizes": [1, 2, 1], "coords": [0, r, 0],
+                                                "trainer_mesh": True, "wrong_data": str(e.value)}
 
 
 @pytest.mark.parametrize("make", [parallel.make_mesh, lambda d: Trainer(devices=d)])

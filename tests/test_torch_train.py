@@ -22,6 +22,9 @@ lr * momentum sums of those gradients).
 
 from __future__ import annotations
 
+import os
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,9 +37,12 @@ from pytorch_retinanet_tpu.engine.model import RetinaNetModel as JaxRetinaNetMod
 from pytorch_retinanet_tpu.engine.trainer import Trainer as JaxTrainer
 from pytorch_retinanet_tpu.models.converter import flax_retinanet_to_torch, torch_retinanet_to_flax
 from pytorch_retinanet_tpu.models.retinanet import Retinanet as JaxRetinanet
+from pytorch_retinanet_tpu.parallel import make_train_mesh as jax_make_train_mesh
 from pytorch_retinanet_tpu_torch import ConfigDict, RetinaNetModel, Retinanet, Trainer
 from pytorch_retinanet_tpu_torch.data import pad_targets
-from pytorch_retinanet_tpu_torch.parallel import make_train_mesh
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(__file__)), "tools"))
+import torch_multihost_smoke as mh  # noqa: E402
 
 KIND = "resnet18"
 MODEL = dict(num_classes=4, backbone_kind=KIND, pretrained=False, min_size=64, max_size=96,
@@ -236,12 +242,35 @@ def test_pad_targets_matches_jax():
 # ---------------------------------------------------------------------------- #
 # The port's Trainer knobs (no JAX counterpart run)
 # ---------------------------------------------------------------------------- #
-@pytest.mark.parametrize("knob", [{"spatial": 2}, {"spatial": 4, "data": 1}])
-def test_later_knobs_raise_with_their_roadmap_item(knob):
-    """Data-parallel meshes are ported (``tests/test_torch_ddp.py``); a
-    spatial training mesh is ROADMAP A14."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        Trainer(mesh=make_train_mesh(["cpu"], **knob))
+TRAIN_MESH_KNOBS = {"spatial=2": {"spatial": 2}, "spatial=4,data=1": {"spatial": 4, "data": 1}}
+
+
+@pytest.fixture(scope="module")
+def train_meshes():
+    """``make_train_mesh`` of each knob on 4 gloo ranks
+    (``tools/torch_multihost_smoke.py``'s ``job_train_meshes``)."""
+    out = mh.RankRun(mh.job_train_meshes, {"knobs": TRAIN_MESH_KNOBS}, world=4).join()
+    assert not out["timed_out"] and not any(out["exitcodes"]), out
+    return out["results"]
+
+
+@pytest.mark.parametrize("knob", list(TRAIN_MESH_KNOBS))
+def test_later_knobs_raise_with_their_roadmap_item(train_meshes, knob):
+    """Spatial training meshes are ported, as data-parallel ones are (the
+    name is the one the test had while they raised): on 4 ranks each knob
+    builds a plan with JAX's axis sizes that a ``Trainer`` takes, every rank
+    at its coordinates, and a data axis the world cannot hold raises what
+    JAX's ``make_train_mesh`` raises on 4 devices."""
+    kw = TRAIN_MESH_KNOBS[knob]
+    want = jax_make_train_mesh(jax.devices()[:4], **kw).mesh
+    sizes = [want.shape.get(a, 1) for a in ("data", "spatial", "model")]
+    with pytest.raises(ValueError) as e:
+        jax_make_train_mesh(jax.devices()[:4], spatial=kw["spatial"], data=4)
+    for rank, res in enumerate(train_meshes):
+        got = res[knob]
+        assert got["sizes"] == sizes and got["trainer_mesh"]
+        assert got["coords"] == [rank // kw["spatial"], rank % kw["spatial"], 0]
+        assert got["wrong_data"] == str(e.value)
 
 
 def test_trainer_test_predict_and_data_kinds_raise(variables):

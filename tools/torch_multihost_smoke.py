@@ -17,12 +17,18 @@ frozen and with live batch norm (2 rows a rank); it holds them against one
 process (the merged records and AP, the validation loss, the step losses,
 and the parameters after the first step by :func:`update_gaps`; the live-BN
 reference on the layer's global path, :func:`one_process_global_bn`) and
-the ranks against each other, and writes the checks:
+the ranks against each other. Then the spatial meshes
+(``parallel/sharding.py``) at 128x192: data 1 x spatial ``world`` and, on 4
+ranks, 2 x 2 (:func:`spatial_meshes`): ``build_sharded_forward`` against one
+process's forward within 1e-4, and 2 SGD steps with frozen BN on
+``make_train_mesh`` against one process (NCCL exchanges the halo rows with
+``batch_isend_irecv``). It writes the checks:
 
     python tools/torch_multihost_smoke.py --world 4 \
         --out multihost_torch_nccl.json                      # NCCL, one card per rank
     python tools/torch_multihost_smoke.py --device cpu \
         [--out MULTIHOST_TORCH.json]                         # 2 gloo ranks on the CPU
+    python tools/torch_multihost_smoke.py --world 4 --only spatial ...   # one part
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import hashlib
 import json
 import os
 import shutil
+import subprocess
 import sys
 import tempfile
 import time
@@ -226,13 +233,15 @@ def seeded_state(model: dict, seed: int = 0) -> dict:
 
 
 def fit_served(model: dict, batches: list, state: dict, trainer_kw: dict, device: str = "cpu",
-               devices: Optional[list] = None, optimizer: dict = OPTIMIZER):
+               devices: Optional[list] = None, optimizer: dict = OPTIMIZER, mesh: Any = None,
+               grads: Optional[dict] = None):
     """``Trainer.fit`` of a served model: (trainer, model, the module's
-    state after the first optimizer step)."""
+    state after the first optimizer step). `grads`, when given, receives
+    the gradients the first optimizer step applied."""
     from pytorch_retinanet_tpu_torch import Trainer
 
     m = served_model(model, batches, state, device, optimizer)
-    t = Trainer(devices=devices, **{**TRAIN_KW, **trainer_kw})
+    t = Trainer(devices=devices, mesh=mesh, **{**TRAIN_KW, **trainer_kw})
     first: dict = {}
     fit_loop = t._fit_loop
 
@@ -241,6 +250,9 @@ def fit_served(model: dict, batches: list, state: dict, trainer_kw: dict, device
         step = opt.step
 
         def first_step(*a, **k):
+            if not first and grads is not None:
+                grads.update({n: p.grad.detach().cpu().clone()
+                              for n, p in m.net.module.named_parameters() if p.grad is not None})
             out = step(*a, **k)
             if not first:
                 first.update({k: v.detach().cpu().clone()
@@ -391,6 +403,7 @@ def job_collectives(rank: int, world: int, params: dict) -> dict:
         "any": parallel.any_rank([rank == world - 1, False]),
     }
     out["gathered"] = [(g["rank"], len(g["pad"])) for g in out["gathered"]]
+    out["train_mesh"] = job_train_meshes(rank, world, {"knobs": {"spatial": {"spatial": world}}})
 
     bn = params["bn"]
     got = live_bn_rows(torch.tensor(bn["x"]), torch.tensor(bn["w_out"]),
@@ -425,18 +438,23 @@ def job_collectives(rank: int, world: int, params: dict) -> dict:
 
 def job_train(rank: int, world: int, params: dict) -> dict:
     """Multi-rank ``Trainer.fit`` runs from one state on global batches (each
-    rank its rows). A run names its ``trainer`` arguments and may override
-    the ``model`` and the ``optimizer``. Per run: the logged (rank-averaged)
-    losses and the state digest; rank 0 saves the state after the first
-    optimizer step to ``<workdir>/<run>.pt`` (and, under ``save_last``, the
-    final one to ``<workdir>/<run>_last.pt``)."""
+    data shard its rows). A run names its ``trainer`` arguments and may
+    override the ``model`` and the ``optimizer``; with ``spatial`` it trains
+    on ``make_train_mesh(spatial=...)`` (the data axis the rest of the
+    world). Per run: the logged (rank-averaged) losses and the state digest;
+    rank 0 saves the state after the first optimizer step to
+    ``<workdir>/<run>.pt`` (and, under ``save_last``, the final one to
+    ``<workdir>/<run>_last.pt``)."""
+    from pytorch_retinanet_tpu_torch.parallel import make_train_mesh
+
     data = torch.load(params["data"], weights_only=False)
     device, devices = rank_devices(world, params)
     out = {}
     for name, run in params["runs"].items():
+        mesh = make_train_mesh(devices, spatial=run["spatial"]) if run.get("spatial") else None
         t, m, first = fit_served({**TRAIN_MODEL, **run.get("model", {})}, data["batches"],
                                  data["state"], run["trainer"], device=device, devices=devices,
-                                 optimizer=run.get("optimizer", OPTIMIZER))
+                                 optimizer=run.get("optimizer", OPTIMIZER), mesh=mesh)
         out[name] = {"losses": list(t.logger_.meters["loss"].window),
                      "digest": state_digest(m.net.module), "global_step": t.global_step}
         if rank == 0:
@@ -559,6 +577,250 @@ def job_nonfinite(rank: int, world: int, params: dict) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# Spatial and tensor-parallel meshes (parallel/sharding.py)
+# --------------------------------------------------------------------------- #
+# build_sharded_forward's cases: the mesh (make_inference_mesh's axes) and
+# the images ("images": [2, 128, 128, 3]; "images160": [1, 160, 160, 3],
+# 5 units of 32 rows, uneven over 2 and over 4 ranks).
+SHARDED_CASES = {
+    "spatial2": ({"spatial": 2}, "images"),
+    "data2_spatial2": ({"data": 2, "spatial": 2}, "images"),
+    "model2": ({"model": 2}, "images"),
+    "spatial2_model2": ({"spatial": 2, "model": 2}, "images"),
+    "h160_spatial2": ({"spatial": 2}, "images160"),
+    "h160_spatial4": ({"spatial": 4}, "images160"),
+}
+# place_images' guards: (mesh, batch shape) -> JAX's ValueError.
+PLACE_GUARDS = {
+    "height": ({"spatial": 4}, (2, 64, 64, 3)),
+    "batch": ({"data": 2, "spatial": 2}, (3, 128, 128, 3)),
+}
+# The script's spatial forwards against one process: JAX's bar for its
+# sharded forwards (tests/test_sharding.py), absolute and relative.
+SPATIAL_FORWARD_TOL = 1e-4
+# Spatial training runs (f32, frozen BN): the model's options.
+SPATIAL_TRAIN_RUNS = {"plain": {}, "remat": {"remat": True}, "stem_s2d": {"stem_s2d": True}}
+
+
+def halo_ops() -> dict:
+    """Each op of the trunk that a height split runs with halo rows, at the
+    stride of the input the trunk gives it: name -> (input stride, output
+    stride, input channels, the op's module, the op on NCHW)."""
+    from torch import nn
+
+    from pytorch_retinanet_tpu_torch.models.layers import (
+        conv, conv_layer, max_pool_torch, space_to_depth_2x,
+    )
+
+    torch.manual_seed(0)
+    layers = {"stem 7x7/2": conv_layer(3, 4, 7, 2), "3x3/2 conv": conv_layer(4, 4, 3, 2),
+              "3x3/1 conv": conv_layer(4, 4, 3, 1), "1x1 conv": conv_layer(4, 4, 1, bias=True),
+              "1x1/2 conv": conv_layer(4, 4, 1, 2), "s2d 4x4/1": nn.Conv2d(12, 4, 4, bias=False)}
+    layers = {k: v.double() for k, v in layers.items()}
+    return {
+        "stem 7x7/2": (1, 2, 3, layers["stem 7x7/2"], lambda x: conv(layers["stem 7x7/2"], x)),
+        "3x3/2 max pool": (2, 2, 4, None, lambda x: max_pool_torch(x, 3, 2)),
+        "3x3/2 conv": (16, 2, 4, layers["3x3/2 conv"], lambda x: conv(layers["3x3/2 conv"], x)),
+        "3x3/1 conv": (32, 1, 4, layers["3x3/1 conv"], lambda x: conv(layers["3x3/1 conv"], x)),
+        "1x1 conv": (4, 1, 4, layers["1x1 conv"], lambda x: conv(layers["1x1 conv"], x)),
+        "1x1/2 conv": (8, 2, 4, layers["1x1/2 conv"], lambda x: conv(layers["1x1/2 conv"], x)),
+        "s2d 4x4/1": (1, 2, 3, layers["s2d 4x4/1"],
+                      lambda x: conv(layers["s2d 4x4/1"], space_to_depth_2x(x),
+                                     pad=((2, 1), (2, 1)))),
+    }
+
+
+def halo_checks(plan, height: int = 64) -> dict:
+    """Each op of :func:`halo_ops` on this rank's rows of an f64 input,
+    through each transport of the exchange, against the unsplit op: the
+    largest |difference| of the output rows, of the input gradient's rows
+    (backward from ``sum(y * w)``), and of the weight gradient summed over
+    the spatial ranks; and how many exchanges it made."""
+    import functools
+
+    import torch.distributed as dist
+
+    from pytorch_retinanet_tpu_torch.models.layers import splitting
+    from pytorch_retinanet_tpu_torch.parallel import sharding
+
+    out = {}
+    for name, (stride, out_stride, cin, layer, op) in halo_ops().items():
+        g = torch.Generator().manual_seed(len(name))
+        x = torch.randn((2, cin, height // stride, 6), generator=g, dtype=torch.float64)
+        x.requires_grad_(True)
+        y = op(x)
+        w = torch.randn(y.shape, generator=g, dtype=torch.float64)
+        params = [] if layer is None else [layer.weight]
+        grads = torch.autograd.grad((y * w).sum(), [x] + params)
+        for transport in ("p2p", "gathered"):
+            rows = sharding._Rows(plan, height)
+            exchange = (functools.partial(sharding._exchange_gathered, rows)
+                        if transport == "gathered" else rows.exchange)
+            calls = []
+            rows.exchange = lambda down, up: calls.append(1) or exchange(down, up)
+            start, stop = (v // stride for v in rows.bounds[rows.index])
+            xr = x.detach()[:, :, start:stop].clone().requires_grad_(True)
+            with splitting(sharding._Split(rows, {})):
+                yr = op(xr)
+            o0, o1 = start // out_stride, stop // out_stride
+            rgrads = torch.autograd.grad((yr * w[:, :, o0:o1]).sum(), [xr] + params)
+            for gr in rgrads[1:]:
+                dist.all_reduce(gr, group=rows.group)
+            out[f"{name} {transport}"] = {
+                "y": float((yr - y.detach()[:, :, o0:o1]).abs().max()),
+                "x_grad": float((rgrads[0] - grads[0][:, :, start:stop]).abs().max()),
+                "weight_grad": max([float((a - b).abs().max())
+                                    for a, b in zip(rgrads[1:], grads[1:])], default=0.0),
+                "shape": list(yr.shape), "exchanges": len(calls)}
+    return out
+
+
+def job_sharding(rank: int, world: int, params: dict) -> dict:
+    """``parallel/sharding.py`` on `world` (4) gloo ranks: the sharded
+    forwards of :data:`SHARDED_CASES` (each rank's per-level outputs saved
+    to ``<workdir>/<case>_rank<r>.pt``), the guards of
+    :data:`PLACE_GUARDS`, the exchange alone (:func:`halo_checks`, 2 ranks),
+    and on the ``(data 2, spatial 2)`` training mesh: the runs of
+    :data:`SPATIAL_TRAIN_RUNS` (2 steps; rank 0 saves each run's first-step
+    state and gradients) and the ``Trainer``'s test, validation and predict
+    on ``params["conf"]``'s dataset, and its refusal of live BN at ``fit``."""
+    from pytorch_retinanet_tpu_torch import OmegaConf, RetinaNetModel, Trainer
+    from pytorch_retinanet_tpu_torch.models import RetinaNetModule
+    from pytorch_retinanet_tpu_torch.parallel import make_train_mesh
+    from pytorch_retinanet_tpu_torch.parallel.sharding import (
+        build_sharded_forward, make_inference_mesh,
+    )
+
+    work, cpus = params["workdir"], ["cpu"] * world
+    data = torch.load(params["data"], weights_only=False)
+    module = RetinaNetModule(backbone_kind="resnet18", num_classes=4, dtype=torch.float32)
+    module.load_state_dict(data["state"], strict=True)
+    out: Dict[str, Any] = {"forward": {}, "guards": {}}
+    for name, (mesh, key) in SHARDED_CASES.items():
+        plan = make_inference_mesh(cpus, **mesh)
+        if plan is None:
+            continue
+        forward, place = build_sharded_forward(module, plan)
+        cls, box = forward(place(data[key]))
+        torch.save({"cls": cls, "box": box}, os.path.join(work, f"{name}_rank{rank}.pt"))
+        out["forward"][name] = list(plan.coords)
+    for name, (mesh, shape) in PLACE_GUARDS.items():
+        plan = make_inference_mesh(cpus, **mesh)
+        if plan is not None:
+            try:
+                build_sharded_forward(module, plan)[1](torch.zeros(shape))
+            except ValueError as e:
+                out["guards"][name] = str(e)
+    plan = make_inference_mesh(cpus, spatial=2)
+    if plan is not None:
+        out["halo"] = halo_checks(plan)
+
+    train = torch.load(params["train"], weights_only=False)
+    plan = make_train_mesh(cpus, spatial=2)
+    out["train_mesh"] = [plan.data_size, plan.spatial_size, list(plan.coords)]
+    out["train"] = {}
+    for name, model_kw in SPATIAL_TRAIN_RUNS.items():
+        grads: dict = {}
+        t, m, first = fit_served({**TRAIN_MODEL, **model_kw}, train["batches"], train["state"],
+                                 {"max_steps": 2}, mesh=plan, grads=grads)
+        out["train"][name] = {"losses": list(t.logger_.meters["loss"].window),
+                              "digest": state_digest(m.net.module)}
+        if rank == 0:
+            torch.save({"first": first, "grads": grads}, os.path.join(work, f"train_{name}.pt"))
+
+    conf = params["conf"]
+    model = RetinaNetModel(OmegaConf.create(conf), device="cpu")
+    trainer = Trainer(mesh=plan, logger=False)
+    out["test"] = test_with_records(trainer, model)
+    out["val"] = trainer.validate(model)
+    predicted = trainer.predict(model)
+    torch.save(predicted, os.path.join(work, f"predict_rank{rank}.pt"))
+    live = RetinaNetModel(OmegaConf.create({**conf, "model": {**conf["model"], "freeze_bn": False}}),
+                          device="cpu")
+    try:
+        Trainer(mesh=plan, **TRAIN_KW).fit(live)
+        out["live_fit"] = None
+    except ValueError as e:
+        out["live_fit"] = str(e)
+    out["live_val"] = Trainer(mesh=plan, logger=False).validate(live)
+    return out
+
+
+def spatial_meshes(world: int) -> list:
+    """The script's (data, spatial) meshes on `world` ranks: all of them
+    along the height, and on 4 ranks also 2 x 2."""
+    return [(1, world)] + ([(2, world // 2)] if world >= 4 else []) if world > 1 else []
+
+
+def job_spatial(rank: int, world: int, params: dict) -> dict:
+    """The script's spatial runs: ``build_sharded_forward`` of each mesh of
+    :func:`spatial_meshes` on ``params["images"]`` (the MODEL detector,
+    seeded; each rank's outputs saved to ``<workdir>/forward_<d>x<s>_rank<r>.pt``),
+    then :func:`job_train`'s runs (``params["runs"]``, on spatial meshes)."""
+    from pytorch_retinanet_tpu_torch import Retinanet
+    from pytorch_retinanet_tpu_torch.parallel.sharding import (
+        build_sharded_forward, make_inference_mesh,
+    )
+
+    device, devices = rank_devices(world, params)
+    net = Retinanet(device=device, **MODEL)
+    images = torch.load(params["images"], weights_only=True)
+    for data, spatial in spatial_meshes(world):
+        forward, place = build_sharded_forward(
+            net.module, make_inference_mesh(devices, data=data, spatial=spatial))
+        cls, box = forward(place(images))
+        torch.save({"cls": [c.cpu() for c in cls], "box": [b.cpu() for b in box]},
+                   os.path.join(params["workdir"], f"forward_{data}x{spatial}_rank{rank}.pt"))
+    return job_train(rank, world, params)
+
+
+def spatial_against_one_process(work: str, world: int, dev: str, images: torch.Tensor,
+                                forward_tol: float) -> dict:
+    """:func:`job_spatial`'s forwards against one process's (each data
+    shard's rows from every rank of it): the largest |difference| and the
+    values outside ``forward_tol * (1 + |value|)``."""
+    from pytorch_retinanet_tpu_torch import Retinanet
+
+    net = Retinanet(device=dev, **MODEL)
+    with torch.inference_mode():
+        cls, box = net.module(images.to(net.device), True)
+    want = [t.cpu() for t in cls + box]
+    out = {}
+    for data, spatial in spatial_meshes(world):
+        worst, outside = 0.0, 0
+        for r in range(world):
+            got = torch.load(os.path.join(work, f"forward_{data}x{spatial}_rank{r}.pt"),
+                             weights_only=True)
+            rows = slice(r // spatial * len(images) // data, (r // spatial + 1) * len(images) // data)
+            for g, w in zip(got["cls"] + got["box"], want):
+                diff = (g - w[rows]).abs()
+                worst = max(worst, float(diff.max()))
+                outside += int((diff > forward_tol * (1 + w[rows].abs())).sum())
+        out[f"{data}x{spatial}"] = {"max_abs": worst, "outside": outside}
+    return out
+
+
+def job_train_meshes(rank: int, world: int, params: dict) -> dict:
+    """``make_train_mesh`` of each of ``params["knobs"]`` on `world` CPU
+    ranks, and a ``Trainer`` on it: the axis sizes, this rank's coordinates,
+    and the error for a data axis the world cannot hold."""
+    from pytorch_retinanet_tpu_torch import Trainer
+    from pytorch_retinanet_tpu_torch.parallel import make_train_mesh
+
+    out = {}
+    for key, knob in params["knobs"].items():
+        plan = make_train_mesh(["cpu"] * world, **knob)
+        trainer = Trainer(mesh=plan)
+        out[key] = {"sizes": [plan.axis_size(a) for a in ("data", "spatial", "model")],
+                    "coords": list(plan.coords), "trainer_mesh": trainer.mesh is plan}
+        try:
+            make_train_mesh(["cpu"] * world, spatial=knob["spatial"], data=world)
+        except ValueError as e:
+            out[key]["wrong_data"] = str(e)
+    return out
+
+
+# --------------------------------------------------------------------------- #
 # The script: the JAX tool's protocol on the port, on the CPU
 # --------------------------------------------------------------------------- #
 def records_overlap(a: list, b: list, box_tol: float = 1e-3, score_tol: float = 1e-5) -> float:
@@ -599,6 +861,8 @@ def main(argv=None) -> int:
     ap.add_argument("--world", type=int, default=2, help="ranks (default 2)")
     ap.add_argument("--device", choices=("cpu", "cuda"), default="cuda",
                     help="cuda (default): NCCL, one card per rank; cpu: gloo ranks")
+    ap.add_argument("--only", nargs="+", choices=("data", "spatial"), default=("data", "spatial"),
+                    help="run only these parts: the data-parallel protocol, the spatial meshes")
     args = ap.parse_args(argv)
     if os.path.basename(args.out) == "MULTIHOST.json":
         raise SystemExit("MULTIHOST.json is the JAX package's record; write MULTIHOST_TORCH.json")
@@ -618,37 +882,74 @@ def main(argv=None) -> int:
     loss_rtol, update_rtol = (1e-5, 1e-4) if cuda else (1e-6, 1e-5)
     torch.set_num_threads(1)
     with tempfile.TemporaryDirectory(prefix="torch_multihost_") as work:
-        report = run_protocol(work, world, dev, loss_rtol, update_rtol)
+        report = run_protocol(work, world, dev, loss_rtol, update_rtol, tuple(args.only))
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)
     print(json.dumps({"ok": report["ok"], "checks": report["checks"]}))
     return 0 if report["ok"] else 1
 
 
-def run_protocol(work: str, world: int, dev: str, loss_rtol: float, update_rtol: float) -> dict:
-    """The script's runs and checks, in `work`: the report."""
+def run_protocol(work: str, world: int, dev: str, loss_rtol: float, update_rtol: float,
+                 parts: tuple = ("data", "spatial")) -> dict:
+    """The script's runs and checks, in `work`: the report. `parts`: the
+    data-parallel runs (:func:`data_parallel_part`), the spatial ones
+    (:func:`spatial_part`)."""
+    cuda = dev == "cuda"
+    train_state = seeded_state(TRAIN_MODEL)
+    t0 = time.perf_counter()
+    checks: Dict[str, bool] = {}
+    report: Dict[str, Any] = {}
+    for part in parts:
+        c, r = {"data": data_parallel_part, "spatial": spatial_part}[part](
+            work, world, dev, train_state, loss_rtol, update_rtol)
+        checks.update(c)
+        report.update(r)
+    device = (f"{world} x {torch.cuda.get_device_name(0)}, NCCL" if cuda
+              else f"cpu, gloo, {world} ranks")
+    if cuda:
+        device += "; nvidia-smi name, power.limit: " + "; ".join(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip().splitlines())
+    only = "" if set(parts) == {"data", "spatial"} else f" --only {' '.join(parts)}"
+    return {
+        "ok": all(checks.values()), "checks": checks,
+        "command": f"python tools/torch_multihost_smoke.py --world {world} --device {dev}{only}",
+        "device": f"{device}; torch {torch.__version__}", **report,
+        "tolerances": {"loss_rtol": loss_rtol, "update_rtol": update_rtol,
+                       "spatial_forward": SPATIAL_FORWARD_TOL},
+        "seconds": time.perf_counter() - t0,
+    }
+
+
+def _joined(what: str, run: RankRun) -> list:
+    r = run.join()
+    if r["timed_out"] or any(r["exitcodes"]):
+        raise SystemExit(f"{what} ranks failed: {r['exitcodes']} {r['results']}")
+    return r["results"]
+
+
+def data_parallel_part(work: str, world: int, dev: str, train_state: dict, loss_rtol: float,
+                       update_rtol: float) -> tuple:
+    """The JAX tool's protocol: the merged test and validation, and 2 SGD
+    steps with frozen and live BN, each rank its rows, against one process.
+    (checks, report entries)."""
     from pytorch_retinanet_tpu_torch import OmegaConf, RetinaNetModel, Trainer
 
-    cuda = dev == "cuda"
     csv = write_csv_dataset(os.path.join(work, "csv"))
     state = trained_state(csv)
     torch.save(state, os.path.join(work, "state.pt"))
-    train_state = seeded_state(TRAIN_MODEL)
     batches = seeded_train_batches(2, 2 * world)
     torch.save({"batches": batches, "state": train_state}, os.path.join(work, "train.pt"))
     runs = {"frozen": {"trainer": {"max_steps": 2}},
             "live": {"model": {"freeze_bn": False}, "trainer": {"max_steps": 2}}}
-    kw = dict(world=world, backend="nccl" if cuda else "gloo")
-    t0 = time.perf_counter()
-    evals = RankRun(job_eval, {"conf": csv_conf(csv), "state": os.path.join(work, "state.pt"),
-                               "device": dev}, workdir=os.path.join(work, "eval"), **kw).join()
-    trains = RankRun(job_train, {"data": os.path.join(work, "train.pt"), "runs": runs,
-                                 "device": dev}, workdir=os.path.join(work, "train"), **kw).join()
-    spawn_s = time.perf_counter() - t0
-    for what, r in (("eval", evals), ("train", trains)):
-        if r["timed_out"] or any(r["exitcodes"]):
-            raise SystemExit(f"{what} ranks failed: {r['exitcodes']} {r['results']}")
-    ev, tr = evals["results"], trains["results"]
+    kw = dict(world=world, backend="nccl" if dev == "cuda" else "gloo")
+    ev = _joined("eval", RankRun(job_eval, {"conf": csv_conf(csv),
+                                            "state": os.path.join(work, "state.pt"),
+                                            "device": dev},
+                                 workdir=os.path.join(work, "eval"), **kw))
+    tr = _joined("train", RankRun(job_train, {"data": os.path.join(work, "train.pt"),
+                                              "runs": runs, "device": dev},
+                                  workdir=os.path.join(work, "train"), **kw))
     single = RetinaNetModel(OmegaConf.create(csv_conf(csv)), device=dev)
     single.net.load_state_dict(state)
     st = Trainer(logger=False)
@@ -673,18 +974,43 @@ def run_protocol(work: str, world: int, dev: str, loss_rtol: float, update_rtol:
                                             for v in train.values()),
         "train_ranks_bit_for_bit": all(v["ranks_bit_for_bit"] for v in train.values()),
     }
-    device = (f"{world} x {torch.cuda.get_device_name(0)}, NCCL" if cuda
-              else f"cpu, gloo, {world} ranks")
-    return {
-        "ok": all(checks.values()), "checks": checks,
-        "command": f"python tools/torch_multihost_smoke.py --world {world} --device {dev}",
-        "device": f"{device}; torch {torch.__version__}",
+    return checks, {
         "ap_merged": ev[0]["AP"], "ap_single_process": one["AP"],
         "n_merged_records": len(ev[0]["records"]), "record_overlap_vs_single": overlap,
         "val_loss": {"merged": ev[0]["val"]["val_loss"], "single": one_val["val_loss"]},
-        "train": train, "tolerances": {"loss_rtol": loss_rtol, "update_rtol": update_rtol},
-        "spawn_seconds": spawn_s,
+        "train": train,
     }
+
+
+def spatial_part(work: str, world: int, dev: str, train_state: dict, loss_rtol: float,
+                 update_rtol: float) -> tuple:
+    """The spatial meshes of :func:`spatial_meshes` at 128x192 (4 units of
+    32 rows): ``build_sharded_forward`` and 2 SGD steps (frozen BN) against
+    one process. (checks, report entries)."""
+    batches = seeded_train_batches(2, 4, h=128, w=192, seed=6)
+    torch.save({"batches": batches, "state": train_state}, os.path.join(work, "spatial.pt"))
+    images = torch.rand((2, 128, 192, 3), generator=torch.Generator().manual_seed(6))
+    torch.save(images, os.path.join(work, "spatial_images.pt"))
+    runs = {f"{d}x{s}": {"spatial": s, "trainer": {"max_steps": 2}}
+            for d, s in spatial_meshes(world)}
+    ranks = _joined("spatial", RankRun(
+        job_spatial, {"data": os.path.join(work, "spatial.pt"),
+                      "images": os.path.join(work, "spatial_images.pt"), "runs": runs,
+                      "device": dev},
+        workdir=os.path.join(work, "spatial"), world=world,
+        backend="nccl" if dev == "cuda" else "gloo"))
+    train = {name: train_against_one_process(os.path.join(work, "spatial"), name, run, batches,
+                                             train_state, ranks, dev, loss_rtol, update_rtol)
+             for name, run in runs.items()}
+    forward = spatial_against_one_process(os.path.join(work, "spatial"), world, dev, images,
+                                          SPATIAL_FORWARD_TOL)
+    checks = {
+        "spatial_forward_matches_single_process": all(not v["outside"] for v in forward.values()),
+        "spatial_train_matches_single_process": all(
+            v["loss_ok"] and v["update_gap_of_bound"] <= 1.0 for v in train.values()),
+        "spatial_train_ranks_bit_for_bit": all(v["ranks_bit_for_bit"] for v in train.values()),
+    }
+    return checks, {"spatial_forward": forward, "spatial_train": train}
 
 
 if __name__ == "__main__":
