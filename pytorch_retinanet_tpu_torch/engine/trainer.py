@@ -93,7 +93,7 @@ from ..parallel import (
 )
 from ..ops.boxes import rescale_boxes
 from ..parallel.sharding import make_split_forward
-from ..utils.metrics import MetricLogger, ProfilerHook, device_memory_stats
+from ..utils.metrics import MetricLogger, ProfilerHook, count_syncs, device_memory_stats, span
 from .callbacks import Callback, ModelCheckpoint, _ExperimentLogger
 from .model import RetinaNetModel
 from .optim import (
@@ -260,13 +260,17 @@ class Trainer:
     # ------------------------------------------------------------------ #
     def _upload(self, batch: Dict[str, Any], *keys: str) -> Tuple[Tensor, ...]:
         """The batch's `keys` on the model's device; a pinned tensor uploads
-        with ``non_blocking=True``."""
+        with ``non_blocking=True``; any other host tensor waits for a CUDA
+        device (``host_syncs``)."""
         dev = self._model.net.device
         out = []
         for k in keys:
             v = batch[k]
             v = v if isinstance(v, Tensor) else torch.as_tensor(np.asarray(v))
-            out.append(v.to(dev, non_blocking=v.is_pinned()))
+            pinned = v.is_pinned()
+            if v.device.type == "cpu" and not pinned:
+                count_syncs(dev)
+            out.append(v.to(dev, non_blocking=pinned))
         return tuple(out)
 
     def _device_batch(self, batch: Dict[str, Any]) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
@@ -291,41 +295,54 @@ class Trainer:
         spatial index 0 of each data shard (the others hold the same)."""
         return self._spatial == 1 or self.mesh.axis_index("spatial") == 0
 
-    def _losses(self, batch: Dict[str, Any], reduction: str, forward=None) -> Dict[str, Tensor]:
+    def _losses(self, batch: Dict[str, Any], reduction: str, forward=None,
+                stage: str = "eval") -> Dict[str, Tensor]:
         """The batch's losses through `forward` (:meth:`_detector`, or its
-        DDP wrapper, whose forward arms the gradient all-reduce)."""
+        DDP wrapper, whose forward arms the gradient all-reduce), in the
+        spans ``<stage>.upload``, ``<stage>.forward`` and ``<stage>.loss``."""
         net = self._model.net
-        images, boxes, labels, valid = self._device_batch(batch)
-        cls_levels, box_levels = (forward or self._detector())(images, return_levels=True)
-        losses = retinanet_loss_levels(
-            cls_levels, box_levels, net._anchors_for(tuple(images.shape[1:3])),
-            boxes, labels, valid, num_classes=net.num_classes, reduction=reduction,
-        )
-        losses["loss"] = losses["classification_loss"] + losses["regression_loss"]
+        dev = net.device
+        with span(stage + ".upload"):
+            images, boxes, labels, valid = self._device_batch(batch)
+        with span(stage + ".forward", dev):
+            cls_levels, box_levels = (forward or self._detector())(images, return_levels=True)
+        with span(stage + ".loss", dev):
+            losses = retinanet_loss_levels(
+                cls_levels, box_levels, net._anchors_for(tuple(images.shape[1:3])),
+                boxes, labels, valid, num_classes=net.num_classes, reduction=reduction,
+            )
+            losses["loss"] = losses["classification_loss"] + losses["regression_loss"]
         return losses
 
     def train_step(self, batch: Dict[str, Any]) -> Dict[str, Tensor]:
         """Forward (training mode), loss, backward and (at a window's end)
         the optimizer step on one batch; returns the losses, detached, on
         the device. Under DDP, a micro-batch that does not close its
-        accumulation window runs under ``no_sync``."""
-        self._model.net.module.train()
-        opt = self._optimizer
-        sync = not (self._ddp is not None and isinstance(opt, GradientAccumulation)
-                    and opt.mini_step + 1 < opt.every)
-        with contextlib.nullcontext() if sync else self._ddp.no_sync():
-            losses = self._losses(batch, "mean", self._ddp)
-            losses["loss"].backward()
-        if sync:
-            self._sum_trunk_over_spatial()
-        if isinstance(self._optimizer, GradientAccumulation):
-            self._optimizer.step()
-        else:
-            if self.gradient_clip_val:
-                clip_grad_norm(self._model.net.module.parameters(), self.gradient_clip_val)
-            self._optimizer.step()
-            self._optimizer.zero_grad(set_to_none=True)
-        return {k: v.detach() for k, v in losses.items()}
+        accumulation window runs under ``no_sync``. Traced: ``train.step``
+        over ``train.upload``, ``train.forward``, ``train.loss``,
+        ``train.backward`` (under DDP it includes the all-reduce's finish)
+        and ``train.optimizer``."""
+        dev = self._model.net.device
+        with span("train.step", dev):
+            self._model.net.module.train()
+            opt = self._optimizer
+            sync = not (self._ddp is not None and isinstance(opt, GradientAccumulation)
+                        and opt.mini_step + 1 < opt.every)
+            with contextlib.nullcontext() if sync else self._ddp.no_sync():
+                losses = self._losses(batch, "mean", self._ddp, stage="train")
+                with span("train.backward", dev):
+                    losses["loss"].backward()
+            with span("train.optimizer", dev):
+                if sync:
+                    self._sum_trunk_over_spatial()
+                if isinstance(self._optimizer, GradientAccumulation):
+                    self._optimizer.step()
+                else:
+                    if self.gradient_clip_val:
+                        clip_grad_norm(self._model.net.module.parameters(), self.gradient_clip_val)
+                    self._optimizer.step()
+                    self._optimizer.zero_grad(set_to_none=True)
+            return {k: v.detach() for k, v in losses.items()}
 
     def _sum_trunk_over_spatial(self) -> None:
         """After DDP's average over every rank, the trunk's gradients times
@@ -558,6 +575,7 @@ class Trainer:
             self.eval_step(batch)
 
     def _log_step(self, step_metrics: Dict[str, Tensor], metrics: Dict[str, float]) -> None:
+        count_syncs(self._model.net.device, len(step_metrics))  # each metric read to the host
         host = reduce_dict(step_metrics)
         self._check_finite(host)
         self.logger_.update(**host)
@@ -571,7 +589,8 @@ class Trainer:
         for epoch in range(self.current_epoch, self.max_epochs):
             self.current_epoch = epoch
             step_metrics, logged = None, False
-            for bi, batch in enumerate(self.logger_.log_every(train_loader, header=f"epoch {epoch}")):
+            for bi, batch in enumerate(self.logger_.log_every(train_loader, header=f"epoch {epoch}",
+                                                              fetch_span="train.fetch")):
                 if self._train_batch_limit is not None and bi >= self._train_batch_limit:
                     break
                 if self._agree_to_stop():  # signalled while the loader fetched this batch
@@ -733,6 +752,7 @@ class Trainer:
         else:
             det = net._predict_impl(images, sizes, forward=self._detector())
         boxes = rescale_boxes(det.boxes, sizes[:, None, :], orig[:, None, :])
+        count_syncs(det.boxes.device, len(det))
         boxes, scores, labels, valid = (t.cpu().numpy() for t in (boxes, *det[1:]))
         ids = np.asarray(torch.as_tensor(batch["image_ids"]))
         mask = batch.get("batch_mask")

@@ -43,6 +43,7 @@ from ..ops import (
     process_detections_multilevel_batch,
     retinanet_loss,
 )
+from ..utils.metrics import count_syncs, span
 from .backbone import RESNET_SPECS, BackBone, backbone_out_channels
 from .converter import from_jax_variables
 from .fpn import FeaturePyramid
@@ -242,6 +243,7 @@ def _resize_uint8_like_cv2(image: Tensor, new_h: int, new_w: int) -> Tensor:
     dev = image.device
 
     def taps(src, dst, clamp_weight):
+        count_syncs(dev, 4)  # four pageable uploads
         return [torch.from_numpy(t).to(dev) for t in _cv2_linear_taps(src, dst, clamp_weight)]
 
     x0, x1, a0, a1 = taps(w, new_w, True)
@@ -377,9 +379,9 @@ class Retinanet:
     # ------------------------------------------------------------------ #
     def _anchors_for(self, bucket: Tuple[int, int]) -> List[Tensor]:
         if bucket not in self._anchors:
-            self._anchors[bucket] = [
-                torch.from_numpy(a).to(self.device) for a in generate_anchors_per_level(bucket)
-            ]
+            levels = generate_anchors_per_level(bucket)
+            count_syncs(self.device, len(levels))  # pageable uploads
+            self._anchors[bucket] = [torch.from_numpy(a).to(self.device) for a in levels]
         return self._anchors[bucket]
 
     @contextlib.contextmanager
@@ -404,20 +406,21 @@ class Retinanet:
         own buffers of them. `forward` (``forward(images, return_levels=True)``)
         replaces :func:`apply_detector`: the ``Trainer`` passes a spatial
         mesh's split forward."""
-        with self._mode(False):
+        with self._mode(False), span("predict.forward", images.device):
             if forward is None:
                 cls_levels, box_levels = apply_detector(self.module, images, return_levels=True)
             else:
                 cls_levels, box_levels = forward(images, return_levels=True)
-        return process_detections_multilevel_batch(
-            cls_levels,
-            box_levels,
-            self._anchors_for(tuple(images.shape[1:3])) if anchors is None else anchors,
-            image_sizes,
-            score_thres=self.score_thres,
-            nms_thres=self.nms_thres,
-            max_detections=self.max_detections,
-        )
+        with span("predict.postprocess", images.device):
+            return process_detections_multilevel_batch(
+                cls_levels,
+                box_levels,
+                self._anchors_for(tuple(images.shape[1:3])) if anchors is None else anchors,
+                image_sizes,
+                score_thres=self.score_thres,
+                nms_thres=self.nms_thres,
+                max_detections=self.max_detections,
+            )
 
     @torch.inference_mode()
     def predict(self, images: List[np.ndarray]) -> List[Dict[str, np.ndarray]]:
@@ -428,38 +431,57 @@ class Retinanet:
         A bucket whose images are all uint8 runs as a uint8 batch (uint8
         images resize to cv2's exact uint8 values); any other as f32.
         Returns per image ``{"boxes" [n, 4], "scores" [n], "labels" [n]}``.
+
+        Traced (``utils.metrics.span``): ``predict``; under it
+        ``predict.front`` (the grouping, then each bucket's batch, with a
+        ``predict.upload`` and a ``predict.resize`` per image), then per
+        bucket ``predict.forward``, ``predict.postprocess`` and
+        ``predict.readback``; ``host_syncs`` counts the points that wait
+        for the device.
         """
         out: List[Optional[Dict[str, np.ndarray]]] = [None] * len(images)
-        groups: Dict[Tuple[int, int], List[int]] = {}
-        plans = []
-        for i, im in enumerate(images):
-            new_hw, pad = _resize_plan(int(im.shape[0]), int(im.shape[1]), self.min_size, self.max_size)
-            plans.append((new_hw, (int(im.shape[0]), int(im.shape[1]))))
-            groups.setdefault(pad, []).append(i)
+        with span("predict"):
+            with span("predict.front"):
+                groups: Dict[Tuple[int, int], List[int]] = {}
+                plans = []
+                for i, im in enumerate(images):
+                    new_hw, pad = _resize_plan(int(im.shape[0]), int(im.shape[1]), self.min_size,
+                                               self.max_size)
+                    plans.append((new_hw, (int(im.shape[0]), int(im.shape[1]))))
+                    groups.setdefault(pad, []).append(i)
 
-        for (pad_h, pad_w), idxs in groups.items():
-            arrays = [np.asarray(images[i]) for i in idxs]
-            # An all-uint8 group stays uint8 on the device (the wire format
-            # apply_detector normalizes from bytes); any other goes as f32.
-            wire = torch.uint8 if all(a.dtype == np.uint8 for a in arrays) else torch.float32
-            batch = torch.zeros((len(idxs), pad_h, pad_w, 3), dtype=wire, device=self.device)
-            for row, a in enumerate(arrays):
-                image = torch.as_tensor(a).to(self.device)
-                resized, (nh, nw), _, _ = resize_for_bucket(
-                    image, self.min_size, self.max_size, wire_dtype=wire)
-                batch[row, :nh, :nw] = resized
-            sizes = torch.tensor([plans[i][0] for i in idxs], dtype=torch.float32, device=self.device)
-            det = self._predict_impl(batch, sizes)
-            boxes, scores, labels, valid = (t.cpu().numpy() for t in det)
-            for row, i in enumerate(idxs):
-                n = int(valid[row].sum())
-                (nh, nw), (oh, ow) = plans[i]
-                scale = np.array([ow, oh, ow, oh], np.float32) / np.array([nw, nh, nw, nh], np.float32)
-                out[i] = {
-                    "boxes": boxes[row, :n] * scale,
-                    "scores": scores[row, :n],
-                    "labels": labels[row, :n],
-                }
+            for (pad_h, pad_w), idxs in groups.items():
+                with span("predict.front"):
+                    arrays = [np.asarray(images[i]) for i in idxs]
+                    # An all-uint8 group stays uint8 on the device (the wire format
+                    # apply_detector normalizes from bytes); any other goes as f32.
+                    wire = torch.uint8 if all(a.dtype == np.uint8 for a in arrays) else torch.float32
+                    batch = torch.zeros((len(idxs), pad_h, pad_w, 3), dtype=wire, device=self.device)
+                    for row, a in enumerate(arrays):
+                        with span("predict.upload"):
+                            count_syncs(self.device)  # a pageable upload
+                            image = torch.as_tensor(a).to(self.device)
+                        with span("predict.resize"):
+                            resized, (nh, nw), _, _ = resize_for_bucket(
+                                image, self.min_size, self.max_size, wire_dtype=wire)
+                            batch[row, :nh, :nw] = resized
+                    count_syncs(self.device)  # the sizes' pageable upload
+                    sizes = torch.tensor([plans[i][0] for i in idxs], dtype=torch.float32,
+                                         device=self.device)
+                det = self._predict_impl(batch, sizes)
+                with span("predict.readback"):
+                    count_syncs(self.device, len(det))
+                    boxes, scores, labels, valid = (t.cpu().numpy() for t in det)
+                    for row, i in enumerate(idxs):
+                        n = int(valid[row].sum())
+                        (nh, nw), (oh, ow) = plans[i]
+                        scale = (np.array([ow, oh, ow, oh], np.float32)
+                                 / np.array([nw, nh, nw, nh], np.float32))
+                        out[i] = {
+                            "boxes": boxes[row, :n] * scale,
+                            "scores": scores[row, :n],
+                            "labels": labels[row, :n],
+                        }
         return out  # type: ignore[return-value]
 
     # ------------------------------------------------------------------ #

@@ -12,6 +12,8 @@ from typing import Sequence, Tuple, Union
 
 import torch
 
+from ..utils.metrics import count_syncs
+
 Tensor = torch.Tensor
 
 # Epsilon inside the size log of the encoder (reference box_utils.py:32).
@@ -29,6 +31,14 @@ def cxcywh_to_xyxy(boxes: Tensor) -> Tensor:
     return torch.cat([c - half, c + half], dim=-1)
 
 
+def _weights(weights: Sequence[float], like: Tensor) -> Tensor:
+    """The regression weights as a tensor like `like`; a host sequence is a
+    pageable upload, which waits for a CUDA device (``host_syncs``)."""
+    if not isinstance(weights, Tensor):
+        count_syncs(like.device)
+    return torch.as_tensor(weights, dtype=like.dtype, device=like.device)
+
+
 def encode_boxes(
     boxes: Tensor, anchors: Tensor, weights: Sequence[float] = (1.0, 1.0, 1.0, 1.0)
 ) -> Tensor:
@@ -36,7 +46,7 @@ def encode_boxes(
     b, a = xyxy_to_cxcywh(boxes), xyxy_to_cxcywh(anchors)
     t_centers = (b[..., :2] - a[..., :2]) / a[..., 2:]
     t_sizes = torch.log(b[..., 2:] / a[..., 2:] + _ENCODE_EPS)
-    w = torch.as_tensor(weights, dtype=boxes.dtype, device=boxes.device)
+    w = _weights(weights, boxes)
     return torch.cat([t_centers, t_sizes], dim=-1) * w
 
 
@@ -48,7 +58,7 @@ def decode_boxes(
 ) -> Tensor:
     """Regression activations -> XYXY boxes; size logs clipped to ±`clip_size_log`."""
     a = xyxy_to_cxcywh(anchors)
-    w = torch.as_tensor(weights, dtype=deltas.dtype, device=deltas.device)
+    w = _weights(weights, deltas)
     d = deltas / w
     centers = a[..., 2:] * d[..., :2] + a[..., :2]
     size_log = torch.clamp(d[..., 2:], -clip_size_log, clip_size_log)

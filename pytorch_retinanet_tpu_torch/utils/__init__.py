@@ -1,4 +1,4 @@
-"""Host-side utilities of the port: telemetry, FLOPs, drawing, and the reference's helpers.
+"""Host-side utilities of the port: telemetry and tracing, FLOPs, drawing, and the reference's helpers.
 
 Counterpart of ``pytorch_retinanet_tpu/utils/__init__.py`` (``load_obj``,
 ``collate_fn``, ``seed_everything``, the box drawing of ``visualize``). Its ``enable_compilation_cache`` is
@@ -15,7 +15,18 @@ import random
 import numpy as np
 import torch
 
-from .metrics import MetricLogger, ProfilerHook, SmoothedValue, device_memory_stats
+from .metrics import (
+    MetricLogger,
+    ProfilerHook,
+    SmoothedValue,
+    count,
+    count_syncs,
+    device_memory_stats,
+    drain,
+    set_tracing,
+    span,
+    tracing,
+)
 from .visualize import (
     STANDARD_COLORS,
     draw_bounding_box_on_image,
@@ -70,9 +81,15 @@ __all__ = [
     "ProfilerHook",
     "SmoothedValue",
     "collate_fn",
+    "count",
+    "count_syncs",
     "device_memory_stats",
+    "drain",
     "draw_bounding_box_on_image",
     "load_obj",
     "seed_everything",
+    "set_tracing",
+    "span",
+    "tracing",
     "visualize_boxes_and_labels_on_image_array",
 ]
