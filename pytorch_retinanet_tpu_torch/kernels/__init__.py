@@ -20,6 +20,7 @@ from .bottleneck import (
     fused_bottleneck_supported,
     pack_bottleneck_weights,
 )
+from .frozen_bn import frozen_batch_norm, frozen_bn_backward_plain, frozen_bn_plain
 from .match import match_targets, match_targets_plain
 from .nms import nms_keep_mask, nms_keep_mask_plain
 from .select import top2_classes, top2_classes_plain
@@ -50,6 +51,10 @@ KERNELS: Tuple[Kernel, ...] = (
     Kernel("top2_classes", top2_classes, "cuda",
            "pytorch_retinanet_tpu_torch/csrc/top2.cu",
            "pytorch_retinanet_tpu/kernels/select_pallas.py:105"),
+    Kernel("frozen_bn", frozen_batch_norm, "cuda",
+           "pytorch_retinanet_tpu_torch/csrc/frozen_bn.cu",
+           "none: the JAX package leaves frozen BN to XLA's fusion; bound by bytes, 6.8 ms "
+           "backward and 4.5 ms forward a R-50 step at batch 16, 800x1344 (3.81 G elements)"),
 )
 
 
@@ -67,6 +72,9 @@ __all__ = [
     "bottleneck_phase_trace",
     "bottleneck_plain",
     "bottleneck_weight_tiles",
+    "frozen_batch_norm",
+    "frozen_bn_backward_plain",
+    "frozen_bn_plain",
     "fused_bottleneck",
     "fused_bottleneck_supported",
     "match_targets",

@@ -28,6 +28,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.frozen_bn import frozen_batch_norm
 from ..parallel import get_world_size
 
 Tensor = torch.Tensor
@@ -94,7 +95,9 @@ class BatchNorm2d(nn.Module):
 
     Frozen (the default), or live outside training mode: ``(x - mean) /
     sqrt(var + eps) * weight + bias`` on the running statistics, in f32,
-    returned in the dtype of `x`. Live in training mode: the same on the
+    returned in the dtype of `x`; where autograd records (grad enabled, and
+    `x` or the weight requiring grad), through :func:`frozen_batch_norm` with the
+    ReLU fused, else through eval-mode ``F.batch_norm``. Live in training mode: the same on the
     batch's mean and biased variance over (N, H, W), computed in f32, and
     ``running = 0.9 * running + 0.1 * batch`` with the biased variance,
     flax's ``nn.BatchNorm(momentum=0.9)``. In a process group of more than
@@ -122,6 +125,11 @@ class BatchNorm2d(nn.Module):
 
     def forward(self, x: Tensor, relu: bool = False) -> Tensor:
         if self.frozen or not self.training:
+            if torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad):
+                # Under autograd: one pass each way, the ReLU fused, y not
+                # saved (kernels/frozen_bn.py).
+                return frozen_batch_norm(x, self.weight, self.bias, self.running_mean,
+                                         self.running_var, self.eps, relu)
             # Eval-mode batch_norm: f32 math on f32 statistics, one rounding
             # into x's dtype, one pass over the activation (cuDNN on the card).
             y = F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,

@@ -21,7 +21,9 @@ the outputs equal; the top-2 kernel exactly; the flat postprocess through
 the NMS kernel equal to it through the plain version; an artifact exported on the
 card equal to eager ``_predict_impl`` bit for bit, and the serve loop over
 it equal to ``predict`` on the same full batches (labels exactly, scores
-within 1e-5, boxes within 1e-3 px).
+within 1e-5, boxes within 1e-3 px); the frozen-BN pair's y and dx bit for
+bit, its parameter gradients within 2**-14 of the sums of their terms'
+magnitudes (another order of addition).
 """
 
 from __future__ import annotations
@@ -686,3 +688,65 @@ def test_serve_on_the_card_uses_a_pinned_ring(dev, monkeypatch):
         np.testing.assert_array_equal(g["labels"], w["labels"])
         np.testing.assert_allclose(g["scores"], w["scores"], rtol=0, atol=1e-5)
         np.testing.assert_allclose(g["boxes"], w["boxes"], rtol=0, atol=1e-3)
+
+
+# The frozen-BN pair: (n, c, h, w, dtype, channels-last, ReLU) over its paths:
+# 16-byte vectors of channels, channels that are no vector, a row a block,
+# NCHW planes with and without vectors.
+FROZEN_BN_SHAPES = [(2, 64, 40, 68, torch.bfloat16, True, True),
+                    (2, 2048, 7, 11, torch.bfloat16, True, False),
+                    (3, 24, 9, 13, torch.bfloat16, True, True),
+                    (2, 2048, 5, 7, torch.float32, True, True),
+                    (2, 3, 9, 11, torch.float32, True, False),
+                    (2, 64, 16, 24, torch.bfloat16, False, True),
+                    (2, 128, 10, 13, torch.float32, False, False)]
+
+
+@pytest.mark.parametrize("n,c,h,w,dtype,channels_last,relu", FROZEN_BN_SHAPES)
+def test_frozen_bn_kernels_match_plain(dev, n, c, h, w, dtype, channels_last, relu):
+    """y and dx bit for bit (the same IEEE operations), the parameter
+    gradients within 2**-14 of the sums of their terms' magnitudes (another
+    order of addition), the backward deterministic."""
+    import importlib
+
+    fb = importlib.import_module("pytorch_retinanet_tpu_torch.kernels.frozen_bn")
+    g = torch.Generator().manual_seed(c + h)
+    x, dy = (torch.randn(n, c, h, w, generator=g).to(dtype).to(dev) for _ in range(2))
+    if channels_last:
+        x, dy = (t.contiguous(memory_format=torch.channels_last) for t in (x, dy))
+    params = [t.to(dev) for t in (0.5 + torch.rand(c, generator=g), 0.3 * torch.randn(c, generator=g),
+                                  0.3 * torch.randn(c, generator=g), 0.2 + torch.rand(c, generator=g))]
+    y = fb._launch_forward(x, *params, 1e-5, relu)
+    y_ref = fb.frozen_bn_plain(x, *params, 1e-5, relu)
+    assert y.stride() == x.stride() and torch.equal(y, y_ref)
+    got = fb._launch_backward(dy, x, *params, 1e-5, relu)
+    again = fb._launch_backward(dy, x, *params, 1e-5, relu)
+    dx_ref, dw_ref, db_ref = fb.frozen_bn_backward_plain(dy, x, *params, 1e-5, relu)
+    assert got[0].stride() == x.stride() and torch.equal(got[0], dx_ref)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    gm = torch.where(y_ref <= 0, torch.zeros((), device=dev), dy.float()) if relu else dy.float()
+    xmu = (x.float() - params[2][None, :, None, None]).abs()
+    invstd = torch.rsqrt(params[3] + 1e-5)
+    assert bool(((got[1] - dw_ref).abs() <= 2**-14 * (gm.abs() * xmu).sum((0, 2, 3)) * invstd
+                 + 1e-12).all())
+    assert bool(((got[2] - db_ref).abs() <= 2**-14 * gm.abs().sum((0, 2, 3)) + 1e-12).all())
+
+
+def test_frozen_bn_training_step_launches_the_pair(dev):
+    """A resnet18 training step on the card launches the pair once a BN each
+    way; predict launches it not at all."""
+    from pytorch_retinanet_tpu_torch.kernels import frozen_batch_norm
+
+    net = _small_bf16_net()
+    images = torch.rand(2, 64, 96, 3, device=dev)
+    targets = {"boxes": torch.tensor([[[4.0, 6.0, 40.0, 50.0]]] * 2, device=dev),
+               "labels": torch.tensor([[1], [2]], device=dev),
+               "valid": torch.ones(2, 1, dtype=torch.bool, device=dev)}
+    before = frozen_batch_norm.launches
+    losses = net.forward(images, targets)
+    (losses["classification_loss"] + losses["regression_loss"]).backward()
+    torch.cuda.synchronize()
+    assert frozen_batch_norm.launches - before == 2 * 20
+    before = frozen_batch_norm.launches
+    net.predict([np.zeros((64, 96, 3), np.uint8)])
+    assert frozen_batch_norm.launches == before
