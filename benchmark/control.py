@@ -31,35 +31,37 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 
 
-def predict_arms(cfg, traffic, seed, device):
+def predict_arms(spec, cfg, traffic, seed, device):
     from rnbench import compare, predict
     from rnbench import reference as R
 
     m = cfg["model"]
-    sd = predict.state_dict(cfg, traffic, seed, device)
+    fam = spec.family(cfg)
+    sd = predict.state_dict(cfg, traffic, seed, device, fam)
     calls = predict.make_pool(traffic, seed, device)
     images = [im for call in calls[:int(traffic["check_calls"])] for im in call]
     arms, detail = {}, []
     with R.f32_exact():
-        ref = compare.reference_outputs(images, sd, m, device)
-        low = compare.reference_outputs(images, sd, m, device, R.fp8_quant)
+        ref = compare.reference_outputs(images, sd, fam, m, device)
+        low = compare.reference_outputs(images, sd, fam, m, device, R.fp8_quant)
         for arm, outputs, fault in [("fp8", low, None), ("keep_all", ref, "keep_all"),
                                     ("one_per_class", ref, "one_per_class"), ("empty", ref, "empty"),
                                     ("lowest_k", ref, "lowest_k")]:
             detail.append(f"arm {arm}:")
-            arms[arm] = compare.predict_checks(images, compare.detections_of(outputs, m, fault), sd, m,
-                                               device, detail, outputs=ref)
+            dets = compare.detections_of(outputs, m, fault)
+            arms[arm] = compare.predict_checks(images, dets, sd, fam, m, device, detail, outputs=ref)
     print("\n".join(detail), file=sys.stderr)
     return arms
 
 
-def train_arms(cfg, traffic, seed, device):
+def train_arms(spec, cfg, traffic, seed, device):
     from rnbench import train, weights
     from rnbench import reference as R
 
     m = cfg["model"]
     world = int(traffic.get("world", 1))
-    sd = weights.make_state_dict(m["backbone_kind"], m["num_classes"], m["prior"], seed, device)
+    fam, optimizer = spec.family(cfg), spec.optimizer(cfg)
+    sd = weights.make_state_dict(fam, m, m["prior"], seed, device)
     bucket = (R.ceil32(m["min_size"]), R.ceil32(m["max_size"]))
     ranks = [train.make_batches(traffic, seed, r, bucket, m["num_classes"], device, False)
              for r in range(world)]
@@ -67,12 +69,12 @@ def train_arms(cfg, traffic, seed, device):
 
     def steps_of(**kw):
         chosen = kw.pop("steps", steps)
-        return train.reference_steps(sd, chosen, m, cfg["optimizer"], device, **kw)
+        return train.reference_steps(sd, chosen, fam, m, optimizer, cfg["optimizer"], device, **kw)
 
     def as_program(run, arm):
         params3 = {k: sd[k] + v for k, v in run["delta"].items()}
         detail = [f"arm {arm}:"]
-        out = train.train_checks(run["losses"], run["d_p"], params3, sd, ref, detail)
+        out = train.train_checks(run["losses"], run["held"], params3, sd, ref, detail)
         print("\n".join(detail), file=sys.stderr)
         return out
 
@@ -105,7 +107,7 @@ def main(argv=None) -> int:
     device = torch.device(args.device)
     arms_of = {"predict": predict_arms, "train": train_arms}[traffic["driver"]]
     for seed in args.seeds:
-        arms = arms_of(cfg, traffic, seed, device)
+        arms = arms_of(spec, cfg, traffic, seed, device)
         print(json.dumps({"workload": cell["name"], "seed": seed, "arms": arms}), flush=True)
         if device.type == "cuda":
             torch.cuda.empty_cache()

@@ -1,6 +1,7 @@
-"""% of the cards' bf16 peak that a training step's convolutions reach: 3 x
-the frozen forward conv FLOPs of an image times the traced run's
-train_img_s, over 989 TFLOP/s per card. A lower bound (conv FLOPs only)."""
+"""% of the cards' bf16 peak that a training step's convolutions and matmuls
+reach: 3 x the frozen forward FLOPs of an image (the trunk's from its
+family) times the traced run's train_img_s, over 989 TFLOP/s per card. A
+lower bound (conv and matmul FLOPs only). None on the CPU."""
 
 from rnbench import yardstick
 
@@ -11,10 +12,9 @@ SOURCE = "host_clock"
 
 
 def read(run):
-    m = run["cfg"]["model"]
-    if m["backbone_kind"] not in yardstick.TRUNKS:
+    p = yardstick.device_peaks(run["device_name"])
+    if p is None:
         return None
     h, w = run["bucket"]
-    flops = 3 * yardstick.detector_flops(h, w, m["num_classes"], m["backbone_kind"])
-    peak = yardstick.peaks(run["device_name"])["bf16_flops"] * run["world"]
-    return 100.0 * flops * run["e2e"]["train_img_s"] / peak
+    flops = 3 * yardstick.detector_flops(h, w, run["family"], run["cfg"]["model"])
+    return 100.0 * flops * run["e2e"]["train_img_s"] / (p["bf16_flops"] * run["world"])

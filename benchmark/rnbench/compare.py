@@ -35,8 +35,9 @@ The detections' own order is not compared: it is the order of their
 scores, which the logit gap already holds.
 
 Training (see ``train.py``): each of the first three steps' loss, the
-first gradient as the optimizer holds it, and the parameters' change after
-the three steps, the last two as a relative gap of norms by the worst leaf.
+first gradient as the optimizer holds it (``benchmark/optimizers/``), and
+the parameters' change after the three steps, the last two as a relative
+gap of norms by the worst leaf.
 """
 
 from __future__ import annotations
@@ -69,15 +70,16 @@ def percentile(values: List[float], q: float) -> float:
 
 
 @torch.no_grad()
-def reference_outputs(images: List[np.ndarray], sd: Dict[str, torch.Tensor], m: Dict, device,
+def reference_outputs(images: List[np.ndarray], sd: Dict[str, torch.Tensor], fam, m: Dict, device,
                       q: R.Quant = None):
     """Per image: (per-level logits and deltas, resized (h, w), original
-    (h, w), bucket) of the reference detector, computed in blocks."""
+    (h, w), bucket) of the reference detector with the trunk family `fam`,
+    computed in blocks."""
     out = []
     for start in range(0, len(images), REF_BLOCK):
         block = images[start:start + REF_BLOCK]
         batch, new_hw, orig_hw = R.padded_batch(block, m["min_size"], m["max_size"], device)
-        cls, box = R.detector(sd, batch, m["backbone_kind"], m["num_classes"], q)
+        cls, box = R.detector(sd, batch, fam, m, q)
         for i in range(len(block)):
             out.append(([c[i] for c in cls], [b[i] for b in box], new_hw[i], orig_hw[i],
                         tuple(batch.shape[1:3])))
@@ -161,14 +163,14 @@ class _Image:
 
 @torch.no_grad()
 def predict_checks(images: List[np.ndarray], dets: List[Dict[str, np.ndarray]],
-                   sd: Dict[str, torch.Tensor], m: Dict, device,
+                   sd: Dict[str, torch.Tensor], fam, m: Dict, device,
                    detail: Optional[List[str]] = None, outputs=None) -> Dict[str, float]:
     """The predict numbers of `dets` (one per image) against the reference
     (`outputs` of `reference_outputs`, computed here when None); what
     explains them goes into `detail`."""
     if outputs is None:
         with R.f32_exact():
-            outputs = reference_outputs(images, sd, m, device)
+            outputs = reference_outputs(images, sd, fam, m, device)
     ref_dets = detections_of(outputs, m)
     thr, cap = float(m["nms_thres"]), int(m["max_detections"])
     out = dict.fromkeys(("box_gap_px", "logit_gap", "nms_excess", "missed_iou", "extra_iou"), 0.0)

@@ -74,23 +74,25 @@ def due_offsets(arrivals: Dict, n: int, rng: np.random.Generator) -> np.ndarray:
     return np.repeat(starts, burst)[:n]
 
 
-def state_dict(cfg: Dict, traffic: Dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    m = cfg["model"]
-    return weights.make_state_dict(m["backbone_kind"], m["num_classes"], traffic["head_prior"], seed,
-                                   device, traffic.get("class_head_std"))
+def state_dict(cfg: Dict, traffic: Dict, seed: int, device, fam) -> Dict[str, torch.Tensor]:
+    return weights.make_state_dict(fam, cfg["model"], traffic["head_prior"], seed, device,
+                                   traffic.get("class_head_std"))
 
 
-def build(cfg: Dict, traffic: Dict, seed: int, device):
+def build(cfg: Dict, traffic: Dict, seed: int, device, fam):
+    """The program's detector with the seeded weights of the trunk family
+    `fam`; the configuration's ``program`` object, where it has one, goes
+    to ``Retinanet`` whole."""
     from pytorch_retinanet_tpu_torch import Retinanet
 
     m = cfg["model"]
-    sd = state_dict(cfg, traffic, seed, device)
+    sd = state_dict(cfg, traffic, seed, device, fam)
     net = Retinanet(backbone_kind=m["backbone_kind"], num_classes=m["num_classes"],
                     prior=traffic["head_prior"], pretrained=False, min_size=m["min_size"],
                     max_size=m["max_size"], compute_dtype=m["compute_dtype"],
                     freeze_bn=m["freeze_bn"], score_thres=m["score_thres"],
                     nms_thres=m["nms_thres"], max_detections_per_images=m["max_detections"],
-                    device=device)
+                    device=device, **cfg.get("program", {}))
     net.load_torch_state_dict(sd)
     return net, sd
 
@@ -163,7 +165,8 @@ def stage_spans(net, images, sync) -> Dict:
 def run(ctx) -> Dict:
     cfg, traffic, seed, device = ctx.cfg, ctx.traffic, ctx.seed, ctx.device
     sync = ctx.sync
-    net, sd = build(cfg, traffic, seed, device)
+    fam = ctx.family
+    net, sd = build(cfg, traffic, seed, device, fam)
     calls = make_pool(traffic, seed, device)
     batch = int(traffic["batch"])
     for images in calls:  # every shape of the window, and the kernels built
@@ -223,7 +226,7 @@ def run(ctx) -> Dict:
     gc.collect()
     ctx.free()
     detail = []
-    checks = compare.predict_checks(images, dets, sd, m, device, detail)
+    checks = compare.predict_checks(images, dets, sd, fam, m, device, detail)
     bucket = R.resize_plan(*traffic["sizes"][0], m["min_size"], m["max_size"])[1]
     return {"e2e": e2e, "detail": detail, "attempted": len(latencies), "failed": 0,
             "memory_peak_bytes": peak, "checks": checks, **extra, "batch": batch, "bucket": bucket}

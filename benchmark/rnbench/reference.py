@@ -1,18 +1,23 @@
-"""The plain reference: RetinaNet ResNet-FPN in f32 PyTorch, written from
-the published description and the reference repository's semantics.
+"""The plain reference: RetinaNet in f32 PyTorch, written from the
+published description and the reference repository's semantics.
 
 It imports nothing of the program. It takes the weights as a
-``state_dict`` in the reference detector's schema (``backbone.backbone.*``,
-``fpn.conv_c{3..7}_*``, ``retinanet_head.{classification,regression}_head.*``),
-the inputs as raw uint8 images or batches, and works out again everything
-the program derives from them: the cv2 resize, the padded bucket, the
-anchors, the matched targets, the losses, the detections.
+``state_dict`` in the reference detector's schema (the trunk family's
+``backbone.backbone.*``, ``fpn.conv_c{3..7}_*``,
+``retinanet_head.{classification,regression}_head.*``), the inputs as raw
+uint8 images or batches, and works out again everything the program
+derives from them: the cv2 resize, the padded bucket, the anchors, the
+matched targets, the losses, the detections. The trunk is its family's
+(``benchmark/families/<family>.py``, found by the configuration's
+``backbone_kind``); normalize, FPN, head, anchors, loss and postprocess are
+shared here.
 
-Every convolution goes through :func:`conv`, which takes an optional
-quantizer: the control (the same reference with its convolution inputs and
-weights rounded to fp8 e4m3; in training also each convolution's output,
-and that output's gradient to e5m2) passes one. Batch norm is frozen: the running
-statistics with the affine parameters, which train.
+Every convolution and matmul goes through :func:`conv` or the family's own
+use of the quantizer: the control (the same reference with its convolution
+inputs and weights rounded to fp8 e4m3; in training also each convolution's
+output, and that output's gradient to e5m2) passes one. Batch norm, where a
+trunk has it, is frozen: the running statistics with the affine
+parameters, which train.
 """
 
 from __future__ import annotations
@@ -33,8 +38,6 @@ STD = (0.229, 0.224, 0.225)
 ANCHOR_SIZES = [[x, x * 2 ** (1 / 3), x * 2 ** (2 / 3)] for x in (32, 64, 128, 256, 512)]
 ANCHOR_RATIOS = (0.5, 1.0, 2.0)
 STRIDES = (8, 16, 32, 64, 128)
-DEPTHS = {"resnet18": ("basic", (2, 2, 2, 2)), "resnet50": ("bottleneck", (3, 4, 6, 3)),
-          "resnet101": ("bottleneck", (3, 4, 23, 3))}
 BN_EPS = 1e-5
 FG_IOU, BG_IOU = 0.5, 0.4
 FOCAL_ALPHA, FOCAL_GAMMA, SMOOTH_L1_BETA = 0.25, 2.0, 0.1
@@ -98,55 +101,19 @@ fp8_train_quant.grad = _E5M2Grad.apply
 # --------------------------------------------------------------------------- #
 # Schema
 # --------------------------------------------------------------------------- #
-def trunk_blocks(kind: str):
-    """(prefix, cin, width, stride, has_downsample, block kind) of every residual block."""
-    block, depths = DEPTHS[kind]
-    expansion = 4 if block == "bottleneck" else 1
-    cin, out = 64, []
-    for stage, (depth, width) in enumerate(zip(depths, (64, 128, 256, 512)), start=1):
-        for i in range(depth):
-            stride = 2 if (i == 0 and stage > 1) else 1
-            cout = width * expansion
-            out.append((f"backbone.backbone.layer{stage}.{i}", cin, width, stride,
-                        stride != 1 or cin != cout, block))
-            cin = cout
-    return out
-
-
-def trunk_out_channels(kind: str) -> Tuple[int, int, int]:
-    return (512, 1024, 2048) if DEPTHS[kind][0] == "bottleneck" else (128, 256, 512)
-
-
-def schema(kind: str, num_classes: int, num_anchors: int = 9) -> List[Tuple[str, tuple, str]]:
+def schema(fam, m: Dict, num_anchors: int = 9) -> List[Tuple[str, tuple, str]]:
     """Every key of the detector's ``state_dict`` with its shape and role:
-    ``conv`` (a conv weight), ``bn`` (weight, bias, running_mean, running_var),
-    ``fpn`` / ``head`` / ``cls_out`` / ``box_out`` (conv weight and bias)."""
-    out: List[Tuple[str, tuple, str]] = []
-
-    def bn(p, c):
-        for leaf in ("weight", "bias", "running_mean", "running_var"):
-            out.append((f"{p}.{leaf}", (c,), f"bn.{leaf}"))
-
-    out.append(("backbone.backbone.conv1.weight", (64, 3, 7, 7), "conv"))
-    bn("backbone.backbone.bn1", 64)
-    for p, cin, width, stride, down, block in trunk_blocks(kind):
-        if block == "bottleneck":
-            convs = [(cin, width, 1), (width, width, 3), (width, width * 4, 1)]
-        else:
-            convs = [(cin, width, 3), (width, width, 3)]
-        for j, (ci, co, k) in enumerate(convs, start=1):
-            out.append((f"{p}.conv{j}.weight", (co, ci, k, k), "conv"))
-            bn(f"{p}.bn{j}", co)
-        if down:
-            co = convs[-1][1]
-            out.append((f"{p}.downsample.0.weight", (co, cin, 1, 1), "conv"))
-            bn(f"{p}.downsample.1", co)
-    c3, c4, c5 = trunk_out_channels(kind)
+    the trunk family's keys and roles, then ``fpn`` / ``head`` /
+    ``cls_out`` / ``box_out`` (conv weights) and ``bias``. The FPN takes
+    its in-channels from the family."""
+    out = list(fam.schema(m))
+    c3, c4, c5 = fam.out_channels(m)
     for name, ci, k in (("c3_1x1", c3, 1), ("c3_3x3", 256, 3), ("c4_1x1", c4, 1),
                         ("c4_3x3", 256, 3), ("c5_1x1", c5, 1), ("c5_3x3", 256, 3),
                         ("c6_3x3", c5, 3), ("c7_3x3", 256, 3)):
         out.append((f"fpn.conv_{name}.weight", (256, ci, k, k), "fpn"))
         out.append((f"fpn.conv_{name}.bias", (256,), "bias"))
+    num_classes = m["num_classes"]
     for head, sub, n_out, role in (("classification_head", "class_subnet", num_anchors * num_classes,
                                     "cls_out"),
                                    ("regression_head", "box_subnet", num_anchors * 4, "box_out")):
@@ -177,26 +144,6 @@ def frozen_bn(x: Tensor, sd: Dict[str, Tensor], p: str, relu: bool) -> Tensor:
     y = (x - sd[p + ".running_mean"][None, :, None, None]) * scale[None, :, None, None] \
         + sd[p + ".bias"][None, :, None, None]
     return torch.relu(y) if relu else y
-
-
-def trunk(sd: Dict[str, Tensor], x: Tensor, kind: str, q: Quant = None) -> List[Tensor]:
-    """Normalized NCHW f32 images -> [C3, C4, C5]."""
-    x = frozen_bn(conv(x, sd["backbone.backbone.conv1.weight"], stride=2, q=q), sd,
-                  "backbone.backbone.bn1", True)
-    x = F.max_pool2d(x, 3, 2, 1)
-    feats = {}
-    for p, _, _, stride, down, block in trunk_blocks(kind):
-        n = 3 if block == "bottleneck" else 2
-        y = x
-        for j in range(1, n + 1):
-            # ResNet V1.5: the bottleneck strides on its 3x3, the basic block on its first conv.
-            s = stride if j == (2 if block == "bottleneck" else 1) else 1
-            y = frozen_bn(conv(y, sd[f"{p}.conv{j}.weight"], stride=s, q=q), sd, f"{p}.bn{j}", j < n)
-        r = frozen_bn(conv(x, sd[f"{p}.downsample.0.weight"], stride=stride, q=q), sd,
-                      f"{p}.downsample.1", False) if down else x
-        x = torch.relu(y + r)
-        feats[p.split(".")[2]] = x
-    return [feats["layer2"], feats["layer3"], feats["layer4"]]
 
 
 def upsample_to(x: Tensor, hw) -> Tensor:
@@ -239,10 +186,11 @@ def normalize(images_u8: Tensor) -> Tensor:
     return ((images_u8.float() / 255.0 - mean) / std).permute(0, 3, 1, 2).contiguous()
 
 
-def detector(sd: Dict[str, Tensor], images_u8: Tensor, kind: str, num_classes: int, q: Quant = None):
-    """uint8 NHWC padded batch -> per-level (logits, deltas), f32."""
-    c3, c4, c5 = trunk(sd, normalize(images_u8), kind, q)
-    return head(sd, fpn(sd, c3, c4, c5, q), num_classes, q)
+def detector(sd: Dict[str, Tensor], images_u8: Tensor, fam, m: Dict, q: Quant = None):
+    """uint8 NHWC padded batch -> per-level (logits, deltas), f32, through
+    the trunk family `fam` (``benchmark/families/``)."""
+    c3, c4, c5 = fam.trunk(sd, normalize(images_u8), m, q)
+    return head(sd, fpn(sd, c3, c4, c5, q), m["num_classes"], q)
 
 
 # --------------------------------------------------------------------------- #

@@ -90,7 +90,7 @@ def _run_pass(run: Dict) -> Optional[Dict]:
 def _predict_pass(run: Dict, tracer, device) -> Dict:
     from . import predict
 
-    net, _ = predict.build(run["cfg"], run["traffic"], PASS_SEED, device)
+    net, _ = predict.build(run["cfg"], run["traffic"], PASS_SEED, device, run["family"])
     calls = predict.make_pool(run["traffic"], PASS_SEED, device)
     for images in calls:
         net.predict(images)
@@ -246,8 +246,8 @@ def _pass_ranks() -> None:
 
 
 def _train_pass(run: Dict, device) -> Dict:
-    params = {"cfg": run["cfg"], "traffic": run["traffic"], "seed": PASS_SEED, "trace": False,
-              "device_type": device.type, "rank_hook": f"{__name__}:_pass_ranks"}
+    params = {"cfg": run["cfg"], "traffic": run["traffic"], "root": run["root"], "seed": PASS_SEED,
+              "trace": False, "device_type": device.type, "rank_hook": f"{__name__}:_pass_ranks"}
     world = int(run["world"])
     if world == 1:
         return _PassJob(params, 0, 1, device, None).run()

@@ -34,6 +34,7 @@ import queue
 import socket
 import statistics
 import time
+from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -42,6 +43,7 @@ import torch.distributed as dist
 
 from . import reference as R
 from . import tracing, weights, yardstick
+from .spec import Spec
 
 MAX_GT = 100
 MAX_DRAWS = 1000
@@ -128,10 +130,9 @@ class _Job:
 
     def snapshot(self, what: str):
         module = self.model.net.module
-        if what == "momentum":
-            state = self.model.optimizer.state
-            self.snap[what] = {k: (state[v]["momentum_buffer"].detach().clone()
-                                   if "momentum_buffer" in state.get(v, {}) else torch.zeros_like(v))
+        if what == "held":
+            state, opt = self.model.optimizer.state, self.p["cfg"]["optimizer"]
+            self.snap[what] = {k: self.optim.held(state.get(v, {}), v, opt).detach().clone()
                                for k, v in module.named_parameters()}
         else:
             self.snap[what] = {k: v.detach().clone() for k, v in module.named_parameters()}
@@ -144,7 +145,7 @@ class _Job:
             raise ValueError(f"warmup_steps must exceed the {CHECK_STEPS} steps the reference follows")
         for k in range(warm):
             if k == 1:
-                self.snapshot("momentum")
+                self.snapshot("held")
             if k == CHECK_STEPS:
                 self.snapshot("params")
             yield batches[k % n]
@@ -196,12 +197,14 @@ class _Job:
                 self.optimizer = out[0]
                 return out
 
-        sd = weights.make_state_dict(m["backbone_kind"], m["num_classes"], m["prior"], p["seed"],
-                                     self.device)
+        spec = Spec(Path(p["root"]))
+        fam, self.optim = spec.family(cfg), spec.optimizer(cfg)
+        sd = weights.make_state_dict(fam, m, m["prior"], p["seed"], self.device)
         hp = {"model": {k: m[k] for k in ("backbone_kind", "num_classes", "min_size", "max_size",
                                           "compute_dtype", "freeze_bn", "prior")},
               "optimizer": cfg["optimizer"]}
         hp["model"]["pretrained"] = False
+        hp["model"].update(cfg.get("program", {}))
         self.model = Model(ConfigDict(hp), device=self.device)
         self.model.net.load_torch_state_dict(sd)
         self.bucket = (R.ceil32(m["min_size"]), R.ceil32(m["max_size"]))  # landscape
@@ -232,11 +235,11 @@ class _Job:
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
         with R.f32_exact():
-            ref = reference_steps(sd, [[b] for b in self.batches[:CHECK_STEPS]], m, cfg["optimizer"],
-                                  self.device,
+            ref = reference_steps(sd, [[b] for b in self.batches[:CHECK_STEPS]], fam, m, self.optim,
+                                  cfg["optimizer"], self.device,
                                   reduce_group=dist.group.WORLD if self.world > 1 else None)
         out["detail"] = [f"rank {self.rank}:"]
-        out["checks"] = train_checks(losses, snap["momentum"], snap["params"], sd, ref, out["detail"])
+        out["checks"] = train_checks(losses, snap["held"], snap["params"], sd, ref, out["detail"])
         return out
 
     def stage_spans(self) -> Dict:
@@ -293,31 +296,34 @@ class _Loader:
         return self.job.feed()
 
 
-def _param_keys(sd: Dict[str, torch.Tensor]) -> List[str]:
-    return [k for k in sd if not k.endswith(("running_mean", "running_var"))]
+def _param_keys(sd: Dict[str, torch.Tensor], fam, m: Dict) -> List[str]:
+    """The keys that train: all but those of the family's buffer roles."""
+    buffers = {key for key, _, role in fam.schema(m) if role in fam.BUFFERS}
+    return [k for k in sd if k not in buffers]
 
 
-def reference_steps(sd, steps, m: Dict, opt: Dict, device, q: R.Quant = None,
+def reference_steps(sd, steps, fam, m: Dict, optimizer, opt: Dict, device, q: R.Quant = None,
                     reduce_group=None, half: bool = False) -> Dict:
-    """The reference's SGD steps (momentum, weight decay added to the
-    gradient, as torch.optim.SGD) from `sd`. ``steps[k]`` lists step k's
-    batches, one per data-parallel rank: the step's gradient is their mean
-    (and, with `reduce_group`, averaged again over that group's ranks, each
-    of which passes its own). Returns each step's loss on its first batch,
-    the first step's gradient before and after the weight decay, and the
-    parameters' change. `half` plants a fault: each batch's loss is the
-    mean over its first half alone."""
-    keys = _param_keys(sd)
+    """The reference's optimizer steps from `sd`: the detector of the trunk
+    family `fam`, the update of the optimizer reference `optimizer`
+    (``benchmark/optimizers/``) with the configuration's `opt`.
+    ``steps[k]`` lists step k's batches, one per data-parallel rank: the
+    step's gradient is their mean (and, with `reduce_group`, averaged again
+    over that group's ranks, each of which passes its own). Returns each
+    step's loss on its first batch, the first step's gradient, that
+    gradient as the optimizer holds it after the step, and the parameters'
+    change. `half` plants a fault: each batch's loss is the mean over its
+    first half alone."""
+    keys = _param_keys(sd, fam, m)
     params = {k: sd[k].detach().clone().requires_grad_(True) for k in keys}
     full = dict(sd)
     full.update(params)
-    lr, wd, mom = (float(opt["params"][k]) for k in ("lr", "weight_decay", "momentum"))
     bucket = tuple(steps[0][0]["images"].shape[1:3])
     anchors = torch.from_numpy(np.concatenate(R.anchors_per_level(bucket))).to(device)
-    losses, bufs, first = [], {}, {}
+    losses, state, first = [], {}, {}
     for step, batches in enumerate(steps):
         for r, batch in enumerate(batches):
-            loss_r = _accumulate(full, batch, anchors, m, device, q, half, len(batches))
+            loss_r = _accumulate(full, batch, fam, anchors, m, device, q, half, len(batches))
             if r == 0:
                 losses.append(loss_r)
         grads = [params[k].grad for k in keys]
@@ -328,19 +334,18 @@ def reference_steps(sd, steps, m: Dict, opt: Dict, device, q: R.Quant = None,
             grads = [g.view_as(params[k]) for g, k in
                      zip(torch.split(flat, [g.numel() for g in grads]), keys)]
         with torch.no_grad():
-            for k, g in zip(keys, grads):
-                d = g + wd * params[k]
-                if step == 0:
-                    first[k] = (g.clone(), d.clone())
-                bufs[k] = d.clone() if step == 0 else bufs[k].mul_(mom).add_(d)
-                params[k].sub_(lr * bufs[k])
+            grads = dict(zip(keys, grads))
+            if step == 0:
+                first["grad"] = {k: g.clone() for k, g in grads.items()}
+            held = optimizer.update(params, grads, state, step, opt)
+            if step == 0:
+                first["held"] = {k: held[k].clone() for k in keys}
+            for k in keys:
                 params[k].grad = None
-    return {"losses": losses, "grad": {k: v[0] for k, v in first.items()},
-            "d_p": {k: v[1] for k, v in first.items()},
-            "delta": {k: (params[k] - sd[k]).detach() for k in keys}}
+    return {"losses": losses, **first, "delta": {k: (params[k] - sd[k]).detach() for k in keys}}
 
 
-def _accumulate(full, batch, anchors, m: Dict, device, q, half: bool, share: int) -> float:
+def _accumulate(full, batch, fam, anchors, m: Dict, device, q, half: bool, share: int) -> float:
     """Backward of one batch's mean loss divided by `share`, in blocks of
     rows, into the parameters' ``.grad``; returns the batch's mean loss."""
     rows = list(range(batch["images"].shape[0]))
@@ -349,8 +354,7 @@ def _accumulate(full, batch, anchors, m: Dict, device, q, half: bool, share: int
     total = 0.0
     for start in range(0, len(rows), REF_BLOCK):
         block = rows[start:start + REF_BLOCK]
-        cls, box = R.detector(full, batch["images"][block].to(device), m["backbone_kind"],
-                              m["num_classes"], q)
+        cls, box = R.detector(full, batch["images"][block].to(device), fam, m, q)
         cls, box = torch.cat(cls, 1), torch.cat(box, 1)
         loss = 0.0
         for j, i in enumerate(block):
@@ -365,12 +369,12 @@ def _accumulate(full, batch, anchors, m: Dict, device, q, half: bool, share: int
 
 
 # A leaf whose reference gradient is under this share of the median leaf's
-# moves under SGD by rounding and weight decay alone: it is left out of the
+# moves by rounding and weight decay alone: it is left out of the
 # change's comparison (a key's bias under softmax has such a gradient).
 STILL_LEAF = 1e-3
 
 
-def train_checks(losses: List[float], momentum: Dict, params3: Dict, sd: Dict, ref: Dict,
+def train_checks(losses: List[float], held: Dict, params3: Dict, sd: Dict, ref: Dict,
                  detail: Optional[List[str]] = None) -> Dict:
     """Each of the three steps' loss (the largest gap relative to the
     reference's), the first gradient as the optimizer holds it and the
@@ -386,7 +390,7 @@ def train_checks(losses: List[float], momentum: Dict, params3: Dict, sd: Dict, r
     moving = [k for k, v in grad_norms.items() if v >= STILL_LEAF * median]
     delta = {k: params3[k] - sd[k] for k in params3}
     return {"loss_gap": loss_gap,
-            "grad_gap": leaf_gaps(momentum, ref["d_p"], detail=detail, what="first gradient"),
+            "grad_gap": leaf_gaps(held, ref["held"], detail=detail, what="first gradient"),
             "change_gap": leaf_gaps(delta, ref["delta"], moving, detail, "change")}
 
 
@@ -432,9 +436,9 @@ def _rank_main(rank: int, world: int, params: Dict, results) -> None:
 
 def run(ctx) -> Dict:
     world = int(ctx.traffic.get("world", 1))
-    params = {"cfg": ctx.cfg, "traffic": ctx.traffic, "seed": ctx.seed, "seconds": ctx.seconds,
-              "trace": ctx.trace, "t_start": ctx.t_start, "device_type": ctx.device.type,
-              "rank_hook": getattr(ctx, "rank_hook", None)}
+    params = {"cfg": ctx.cfg, "traffic": ctx.traffic, "root": str(ctx.spec.root), "seed": ctx.seed,
+              "seconds": ctx.seconds, "trace": ctx.trace, "t_start": ctx.t_start,
+              "device_type": ctx.device.type, "rank_hook": getattr(ctx, "rank_hook", None)}
     if world == 1:
         outs = [_Job(params, 0, 1, ctx.device, None).run()]
     else:

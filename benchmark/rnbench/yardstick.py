@@ -1,16 +1,18 @@
-"""The benchmark's frozen yardstick: peaks, conv FLOPs, the hand-written
-kernels' operation and byte counts, and the device's busy union.
+"""The benchmark's frozen yardstick: peaks, the detector's FLOPs, the
+hand-written kernels' operation and byte counts, and the device's busy
+union.
 
 Copies of ``pytorch_retinanet_tpu_torch/utils/flops.py`` (without its
 ``PEAK_TFLOPS`` override) and of ``chip_smoke.py``'s kernel bounds, kept
 here so that a change to the program cannot change what it is measured
-against. FLOPs count convolution MACs x 2 (batch norm, elementwise and
+against. The trunk's FLOPs are its family's (``benchmark/families/``).
+FLOPs count convolution and matmul MACs x 2 (norms, elementwise and
 pooling left out), so a utilization built on them is a lower bound.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -21,8 +23,9 @@ PEAKS = (
     ("h100 sxm", {"bf16_flops": 989e12, "f32_flops": 67e12, "hbm_bytes_per_s": 3.35e12}),
 )
 
-_DEPTHS = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}
-TRUNKS = frozenset(_DEPTHS)
+def device_peaks(device_name: str) -> Optional[Dict[str, float]]:
+    """The card's peaks; None for the CPU, which has none in the table."""
+    return None if device_name == "cpu" else peaks(device_name)
 
 
 def peaks(device_name: str) -> Dict[str, float]:
@@ -38,30 +41,12 @@ def conv_flops(out_hw, k: int, cin: int, cout: int) -> int:
     return 2 * out_hw[0] * out_hw[1] * k * k * cin * cout
 
 
-def trunk_flops(h: int, w: int, kind: str) -> int:
-    depths = _DEPTHS[kind]
-    fl = conv_flops((h // 2, w // 2), 7, 3, 64)
-    sh, sw = h // 4, w // 4
-    for blocks, width, cin, stride in zip(depths, (64, 128, 256, 512), (64, 256, 512, 1024),
-                                          (1, 2, 2, 2)):
-        oh, ow = sh // stride, sw // stride
-        for b in range(blocks):
-            icin = cin if b == 0 else width * 4
-            ih, iw = (sh, sw) if b == 0 else (oh, ow)
-            fl += conv_flops((ih, iw), 1, icin, width)
-            fl += conv_flops((oh, ow), 3, width, width)
-            fl += conv_flops((oh, ow), 1, width, width * 4)
-            if b == 0:
-                fl += conv_flops((oh, ow), 1, icin, width * 4)
-        sh, sw = oh, ow
-    return fl
-
-
-def fpn_flops(h: int, w: int, channels: int = 256) -> int:
+def fpn_flops(h: int, w: int, in_channels: Tuple[int, int, int], channels: int = 256) -> int:
+    """The FPN on C3 / C4 / C5 of `in_channels`: lateral 1x1s, output 3x3s, P6 and P7."""
     fl = 0
-    for lh, lw, cin in ((h // 8, w // 8, 512), (h // 16, w // 16, 1024), (h // 32, w // 32, 2048)):
+    for lh, lw, cin in zip((h // 8, h // 16, h // 32), (w // 8, w // 16, w // 32), in_channels):
         fl += conv_flops((lh, lw), 1, cin, channels) + conv_flops((lh, lw), 3, channels, channels)
-    return fl + conv_flops((h // 64, w // 64), 3, 2048, channels) \
+    return fl + conv_flops((h // 64, w // 64), 3, in_channels[2], channels) \
         + conv_flops((h // 128, w // 128), 3, channels, channels)
 
 
@@ -74,9 +59,11 @@ def head_flops(h: int, w: int, num_classes: int, anchors: int = 9, channels: int
     return fl
 
 
-def detector_flops(h: int, w: int, num_classes: int, kind: str) -> int:
-    """Forward conv FLOPs of one image through ResNet-FPN and the head."""
-    return trunk_flops(h, w, kind) + fpn_flops(h, w) + head_flops(h, w, num_classes)
+def detector_flops(h: int, w: int, fam, m: Dict) -> int:
+    """Forward FLOPs of one image through the trunk of the family `fam`,
+    the FPN and the head."""
+    return (fam.trunk_flops(h, w, m) + fpn_flops(h, w, fam.out_channels(m))
+            + head_flops(h, w, m["num_classes"]))
 
 
 def bound_s(bytes_: float, ops: float, ops_per_s: float, hbm: float) -> Tuple[float, str]:

@@ -36,12 +36,14 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "pytorch_retinanet_tpu")
 
 
 class Context:
-    """What a driver gets: the cell's files, the run's arguments, the device."""
+    """What a driver gets: the cell's files, the run's arguments, the device,
+    the benchmark's `spec` and the configuration's trunk family."""
 
-    def __init__(self, cfg, traffic, args, device, t_start):
+    def __init__(self, cfg, traffic, args, device, t_start, spec):
         import torch
 
         self.cfg, self.traffic = cfg, traffic
+        self.spec, self.family = spec, spec.family(cfg)
         self.seed, self.seconds, self.trace = args.seed, args.seconds, bool(args.trace)
         self.device = device
         self.t_start = t_start
@@ -115,13 +117,14 @@ def main(argv=None, root: Path = HERE.parent, require_cuda: bool = True, rank_ho
         raise ValueError(f"{cell['name']}: traffic {cell['traffic']} runs {traffic.get('world', 1)} "
                          f"ranks, the cell asks for {cell['chips']} chips")
     driver = {"predict": predict, "train": train}[traffic["driver"]]
-    ctx = Context(cfg, traffic, args, device, T_START)
+    ctx = Context(cfg, traffic, args, device, T_START, spec)
     ctx.rank_hook = rank_hook
     out = driver.run(ctx)
 
     run = {"e2e": out["e2e"], "trace": out.get("trace") or {}, "spans": out.get("spans") or {},
            "counters": out.get("counters") or {}, "cfg": cfg, "traffic": traffic,
            "batch": out["batch"], "bucket": out["bucket"], "world": int(cell["chips"]),
+           "root": str(root), "family": ctx.family,
            "device_name": torch.cuda.get_device_name(0) if device.type == "cuda" else "cpu"}
     metrics = {}
     if args.trace:

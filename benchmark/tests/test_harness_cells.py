@@ -31,6 +31,9 @@ def test_every_cell_resolves(cell):
     assert int(traffic.get("world", 1)) == c["chips"]
     assert limits and all(isinstance(v, (int, float)) for v in limits.values())
     assert cfg["name"] == c["config"]
+    fam = spec.family(cfg)  # exactly one trunk family claims the kind
+    assert len(fam.out_channels(cfg["model"])) == 3
+    assert callable(spec.optimizer(cfg).update)
     e2e = {m["name"] for m in spec.end_to_end(c)}
     assert "setup_s" in e2e and len(e2e) >= 2
     assert spec.per_layer(c)

@@ -48,12 +48,13 @@ def _run(root: Path, cell: str):
     c = spec.cell(cell)
     cfg, traffic = spec.config(c), spec.traffic(c)
     ctx = bench_run.Context(cfg, traffic, argparse.Namespace(seed=3, seconds=0.5, trace=0),
-                            torch.device("cpu"), time.time())
+                            torch.device("cpu"), time.time(), spec)
     ctx.rank_hook = None
     out = {"predict": predict, "train": train}[traffic["driver"]].run(ctx)
     run = {"e2e": out["e2e"], "trace": out.get("trace") or {}, "spans": out.get("spans") or {},
            "counters": out.get("counters") or {}, "cfg": cfg, "traffic": traffic, "batch": out["batch"],
-           "bucket": out["bucket"], "world": int(c["chips"]), "device_name": "cpu"}
+           "bucket": out["bucket"], "world": int(c["chips"]), "device_name": "cpu", "root": str(root),
+           "family": ctx.family}
     return spec, c, run
 
 

@@ -26,6 +26,7 @@ for p in (str(HERE), str(REPO / "benchmark"), str(REPO)):
 import toy  # noqa: E402
 from rnbench import reference as R  # noqa: E402
 from rnbench import weights  # noqa: E402
+from rnbench.spec import Spec  # noqa: E402
 
 KEYS = ["correct", "attempted", "failed", "metrics", "device", "checks"]
 
@@ -79,7 +80,8 @@ def test_reference_equals_the_port_at_toy_size():
     from pytorch_retinanet_tpu_torch.ops import generate_anchors_per_level, retinanet_loss_levels
 
     m = toy.MODEL
-    sd = weights.make_state_dict(m["backbone_kind"], m["num_classes"], 0.3, 5, "cpu")
+    fam = Spec(REPO).family(toy.CONFIG)
+    sd = weights.make_state_dict(fam, m, 0.3, 5, "cpu")
     net = Retinanet(backbone_kind=m["backbone_kind"], num_classes=m["num_classes"], prior=0.3,
                     pretrained=False, min_size=128, max_size=192, compute_dtype="float32",
                     device="cpu")
@@ -88,7 +90,7 @@ def test_reference_equals_the_port_at_toy_size():
     images = torch.randint(0, 256, (2, 128, 192, 3), generator=gen, dtype=torch.uint8)
     with torch.no_grad():
         got_cls, got_box = net.module(images, return_levels=True)
-        want_cls, want_box = R.detector(sd, images, m["backbone_kind"], m["num_classes"])
+        want_cls, want_box = R.detector(sd, images, fam, m)
     for g, w in zip(got_cls + got_box, want_cls + want_box):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
     boxes = torch.tensor([[[10.0, 20.0, 90.0, 100.0], [0, 0, 0, 0]],
@@ -146,7 +148,7 @@ def _half_batch(monkeypatch):
 
 
 @pytest.mark.parametrize("fault", ["answer_box_altered", "answer_label_altered", "answer_empty_altered",
-                                   "nms_keeps_all", "state_unchanged", "half_batch"])
+                                   "nms_keeps_all", "state_unchanged", "half_batch", "half_batch_adamw"])
 def test_a_broken_timed_path_reads_incorrect(root, monkeypatch, fault):
     if fault.startswith("answer"):
         _alter_first_detection(monkeypatch, fault.split("_")[1])
@@ -159,7 +161,7 @@ def test_a_broken_timed_path_reads_incorrect(root, monkeypatch, fault):
         cell = "toy_train_cell"
     else:
         _half_batch(monkeypatch)
-        cell = "toy_train_cell"
+        cell = "toy_adamw_train_cell" if fault.endswith("adamw") else "toy_train_cell"
     rc, res, err = toy.run_cell(root, cell)
     assert rc == 0, err
     assert res["correct"] is False, err
@@ -177,7 +179,8 @@ def test_data_parallel_toy_on_two_gloo_ranks(root, hook, correct):
 
 @pytest.mark.parametrize("cell,arms", [("toy_predict_cell", ["fp8", "keep_all", "one_per_class", "empty",
                                                              "lowest_k"]),
-                                       ("toy_train_cell", ["fp8", "half", "unchanged"])])
+                                       ("toy_train_cell", ["fp8", "half", "unchanged"]),
+                                       ("toy_adamw_train_cell", ["fp8", "half", "unchanged"])])
 def test_the_control_and_faults_fail_the_limits(root, cell, arms, capsys):
     """The control (fp8 in the program's place) and each planted fault fail
     at least one of the cell's numbers under the real cells' limits."""
