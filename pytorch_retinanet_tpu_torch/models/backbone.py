@@ -1,4 +1,5 @@
-"""ResNet-18/34/50/101/152 trunks returning C3/C4/C5.
+"""ResNet-18/34/50/101/152 trunks returning C3/C4/C5, and :class:`BackBone`,
+which holds a ResNet or a PVT v2 trunk (:mod:`.pvt`) by kind.
 
 Counterpart of ``pytorch_retinanet_tpu/models/backbone.py``. Module and
 parameter names are torchvision's (``conv1``, ``bn1``, ``layer{1-4}.{i}``,
@@ -28,6 +29,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .pvt import PVT_SPECS, PyramidVisionTransformerV2
 from .layers import (
     BatchNorm2d,
     conv,
@@ -56,7 +58,22 @@ BACKBONE_OUT_CHANNELS: Dict[str, Tuple[int, int, int]] = {
     "resnet50": (512, 1024, 2048),
     "resnet101": (512, 1024, 2048),
     "resnet152": (512, 1024, 2048),
+    **{kind: spec.embed_dims[1:] for kind, spec in PVT_SPECS.items()},
 }
+BACKBONE_KINDS = tuple(RESNET_SPECS) + tuple(PVT_SPECS)
+
+
+def is_resnet(kind: str) -> bool:
+    """Whether `kind` is a ResNet trunk: the fused stem and trunk, the
+    spatial and tensor-parallel splits, the JAX conversion and the
+    torchvision checkpoints serve those alone."""
+    return kind in RESNET_SPECS
+
+
+def require_resnet(kind: str, what: str) -> None:
+    """Raise a ValueError saying that `what` takes a ResNet trunk, unless `kind` is one."""
+    if not is_resnet(kind):
+        raise ValueError(f"{what} takes a ResNet trunk; {kind} is none")
 
 
 def backbone_out_channels(kind: str) -> Tuple[int, int, int]:
@@ -199,11 +216,22 @@ class ResNet(nn.Module):
 
 
 class BackBone(nn.Module):
-    """Holds the trunk as ``backbone`` (the reference's ``backbone.backbone.*`` keys)."""
+    """Holds the trunk as ``backbone`` (the reference's ``backbone.backbone.*``
+    keys): a :class:`ResNet` with `freeze_bn`, `remat` and `stem_s2d`, or a
+    PVT v2 trunk with `drop_path_rate` (None: its default)."""
 
-    def __init__(self, kind: str = "resnet50", **options):
+    def __init__(self, kind: str = "resnet50", freeze_bn: bool = True, remat: bool = False,
+                 stem_s2d: bool = False, drop_path_rate: Optional[float] = None):
         super().__init__()
-        self.backbone = ResNet(kind, **options)
+        if kind in PVT_SPECS:
+            if remat or stem_s2d:
+                raise ValueError(f"remat and stem_s2d are ResNet options; {kind} takes neither")
+            rate = {} if drop_path_rate is None else {"drop_path_rate": drop_path_rate}
+            self.backbone = PyramidVisionTransformerV2(kind, **rate)
+            return
+        if drop_path_rate is not None:
+            raise ValueError(f"drop_path_rate is an option of the PVT trunks; {kind} has no drop path")
+        self.backbone = ResNet(kind, freeze_bn=freeze_bn, remat=remat, stem_s2d=stem_s2d)
 
     def forward(self, x: Tensor, stem_in: Optional[Tensor] = None) -> Dict[str, Tensor]:
         return self.backbone(x, stem_in)

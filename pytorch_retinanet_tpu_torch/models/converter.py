@@ -17,7 +17,7 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 
-from .backbone import RESNET_SPECS
+from .backbone import RESNET_SPECS, require_resnet
 
 FPN_KEYMAP = {
     "conv_c3_1x1": "lateral_c3",
@@ -76,6 +76,7 @@ def resnet_state_dict(
 def from_jax_variables(variables: Mapping[str, Any], kind: str) -> Dict[str, np.ndarray]:
     """JAX ``{"params", "batch_stats"}`` of a ``RetinaNetModule`` -> this port's
     ``state_dict`` (numpy values), loadable with ``strict=True``."""
+    require_resnet(kind, "conversion from the JAX package")
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     sd: Dict[str, np.ndarray] = {}

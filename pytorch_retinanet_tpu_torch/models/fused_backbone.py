@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.bottleneck import bottleneck_args, fused_bottleneck, fused_bottleneck_supported
-from .backbone import RESNET_SPECS, ResNet
+from .backbone import RESNET_SPECS, ResNet, is_resnet
 
 Tensor = torch.Tensor
 
@@ -60,9 +60,9 @@ def entry_bottleneck(block, x: Tensor, stride: int) -> Tensor:
 
 
 def fused_trunk_applicable(kind: str) -> bool:
-    """The fused trunk covers bottleneck architectures; basic-block nets use the module."""
-    block_kind, _ = RESNET_SPECS[kind]
-    return block_kind == "bottleneck"
+    """The fused trunk covers bottleneck ResNets; basic-block nets and the
+    other trunks use the module."""
+    return is_resnet(kind) and RESNET_SPECS[kind][0] == "bottleneck"
 
 
 def apply_trunk_fused(
@@ -75,9 +75,9 @@ def apply_trunk_fused(
     every block (the cross-check path). The outputs are channels_last NCHW
     views of NHWC bf16 activations.
     """
-    block_kind, depths = RESNET_SPECS[kind]
-    if block_kind != "bottleneck":
+    if not fused_trunk_applicable(kind):
         raise ValueError(f"the fused trunk takes bottleneck ResNets, got {kind}")
+    _, depths = RESNET_SPECS[kind]
     x = stem_out.to(torch.bfloat16).permute(0, 3, 1, 2)
     out: Dict[str, Tensor] = {}
     for stage, (depth, width) in enumerate(zip(depths, (64, 128, 256, 512)), start=1):

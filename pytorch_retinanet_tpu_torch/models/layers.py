@@ -45,7 +45,7 @@ def conv(layer: nn.Conv2d, x: Tensor, pad=None) -> Tensor:
         (top, bottom), (left, right) = pad
         x, padding = F.pad(x, (left, right, top, bottom)), 0
     bias = None if layer.bias is None else layer.bias.to(x.dtype)
-    return F.conv2d(x, layer.weight.to(x.dtype), bias, layer.stride, padding)
+    return F.conv2d(x, layer.weight.to(x.dtype), bias, layer.stride, padding, 1, layer.groups)
 
 
 def conv_layer(cin: int, cout: int, k: int, stride: int = 1, bias: bool = False) -> nn.Conv2d:

@@ -44,7 +44,7 @@ from ..ops import (
     retinanet_loss,
 )
 from ..utils.metrics import count_syncs, span
-from .backbone import RESNET_SPECS, BackBone, backbone_out_channels
+from .backbone import BACKBONE_KINDS, BackBone, backbone_out_channels, is_resnet, require_resnet
 from .converter import from_jax_variables
 from .fpn import FeaturePyramid
 from .fused_backbone import apply_trunk_fused, fused_trunk_applicable
@@ -70,6 +70,9 @@ class RetinaNetModule(nn.Module):
     ``stem_s2d=True`` stores and trains the space-to-depth stem (a 4x4
     stride-1 conv over 12 channels, see :mod:`.backbone`), as JAX does; the
     fused stem kernel, which takes the 7x7 weight, does not serve it.
+
+    A ``pvt_v2_*`` kind holds a PVT v2 trunk (:mod:`.pvt`), which takes
+    `drop_path_rate` (None: its default) and none of the ResNet options.
     """
 
     def __init__(
@@ -84,6 +87,7 @@ class RetinaNetModule(nn.Module):
         dtype: torch.dtype = torch.bfloat16,
         remat: bool = False,
         stem_s2d: bool = False,
+        drop_path_rate: Optional[float] = None,
     ):
         super().__init__()
         self.backbone_kind = backbone_kind
@@ -94,7 +98,7 @@ class RetinaNetModule(nn.Module):
         self.dtype = dtype
         self.stem_s2d = stem_s2d
         self.backbone = BackBone(backbone_kind, freeze_bn=freeze_bn, remat=remat,
-                                 stem_s2d=stem_s2d)
+                                 stem_s2d=stem_s2d, drop_path_rate=drop_path_rate)
         self.fpn = FeaturePyramid(*backbone_out_channels(backbone_kind), channels=channels)
         self.retinanet_head = RetinaNetHead(num_classes, num_anchors_per_location(), channels)
 
@@ -133,9 +137,10 @@ class RetinaNetModule(nn.Module):
 
 
 def fused_stem_applicable(module: RetinaNetModule, image_shape: Sequence[int]) -> bool:
-    """The fused stem serves the bf16 module with the 7x7 stem on the shapes
-    the kernel takes (JAX gates out ``stem_s2d`` the same way)."""
-    return module.dtype == torch.bfloat16 and not module.stem_s2d and stem_supported(image_shape)
+    """The fused stem serves the bf16 ResNet module with the 7x7 stem on the
+    shapes the kernel takes (JAX gates out ``stem_s2d`` the same way)."""
+    return (is_resnet(module.backbone_kind) and module.dtype == torch.bfloat16
+            and not module.stem_s2d and stem_supported(image_shape))
 
 
 def stem_constants(module: RetinaNetModule, dtype: torch.dtype):
@@ -150,7 +155,9 @@ def stem_constants(module: RetinaNetModule, dtype: torch.dtype):
 def fused_stem(module: RetinaNetModule, images: Tensor) -> Tensor:
     """The fused stem kernel on `images` (uint8 or f32 NHWC) with the
     module's 7x7 weight and folded running statistics: the NHWC bf16 input
-    of ``module(images, stem_in=...)``."""
+    of ``module(images, stem_in=...)``. Raises for a trunk without a ResNet
+    stem."""
+    require_resnet(module.backbone_kind, "the fused stem kernel")
     resnet = module.backbone.backbone
     scale, shift = resnet.bn1.folded()
     return stem_forward(images, *stem_constants(module, images.dtype), resnet.conv1.weight,
@@ -172,8 +179,11 @@ def apply_detector(
 
     ``use_fused_trunk=True`` also runs the trunk through the fused
     bottleneck kernel, as the JAX gate does: only in the fused-stem branch
-    and only for bottleneck ResNets (``fused_trunk_applicable``).
+    and only for bottleneck ResNets (``fused_trunk_applicable``); it raises
+    for a trunk that is no ResNet, as ``use_fused_stem=True`` does.
     """
+    if use_fused_trunk:
+        require_resnet(module.backbone_kind, "the fused trunk")
     if use_fused_stem is None:
         use_fused_stem = fused_stem_applicable(module, images.shape)
     if not use_fused_stem:
@@ -315,11 +325,14 @@ class Retinanet:
     """The detector object: weights on one device, ``predict`` on raw images.
 
     The constructor takes the JAX ``Retinanet``'s arguments, with defaults
-    from :mod:`..config` through ``ifnone``, plus ``device``. Weights start
-    from a seeded random init; ``pretrained=True`` loads a torchvision
-    ResNet checkpoint found by :func:`.zoo.fetch_backbone_weights`
-    (``pretrained_path``, then the weights directory), and otherwise warns
-    and keeps the random init (nothing is downloaded).
+    from :mod:`..config` through ``ifnone``, plus ``device`` and, for a PVT
+    v2 trunk (``backbone_kind="pvt_v2_b2"``), ``drop_path_rate``. Weights
+    start from a seeded random init; ``pretrained=True`` loads a
+    torchvision ResNet checkpoint found by
+    :func:`.zoo.fetch_backbone_weights` (``pretrained_path``, then the
+    weights directory), and otherwise warns and keeps the random init
+    (nothing is downloaded). A PVT trunk has no such checkpoint here, and
+    takes ``pretrained=False``.
     """
 
     def __init__(
@@ -338,18 +351,22 @@ class Retinanet:
         compute_dtype: Optional[str] = None,
         remat: bool = False,
         stem_s2d: bool = False,
+        drop_path_rate: Optional[float] = None,
         seed: int = 0,
         device: Optional[str | torch.device] = None,
         **unused,
     ):
         self.num_classes = ifnone(num_classes, C.NUM_CLASSES)
         self.backbone_kind = ifnone(backbone_kind, C.BACKBONE)
-        if self.backbone_kind not in RESNET_SPECS:
+        if self.backbone_kind not in BACKBONE_KINDS:
             raise ValueError(
-                f"backbone_kind must be one of {sorted(RESNET_SPECS)}, got {self.backbone_kind!r}"
+                f"backbone_kind must be one of {sorted(BACKBONE_KINDS)}, got {self.backbone_kind!r}"
             )
         self.prior = ifnone(prior, C.PRIOR)
         self.pretrained = ifnone(pretrained, C.PRETRAINED_BACKBONE)
+        if self.pretrained:
+            require_resnet(self.backbone_kind, "pretrained=True (a torchvision checkpoint; else pass "
+                           "pretrained=False)")
         self.nms_thres = ifnone(nms_thres, C.NMS_THRES)
         self.score_thres = ifnone(score_thres, C.SCORE_THRES)
         self.max_detections = ifnone(max_detections_per_images, C.MAX_DETECTIONS_PER_IMAGE)
@@ -366,6 +383,7 @@ class Retinanet:
             dtype=_DTYPES[ifnone(compute_dtype, C.COMPUTE_DTYPE)],
             remat=remat,
             stem_s2d=stem_s2d,
+            drop_path_rate=drop_path_rate,
         )
         self.module.reset_parameters(torch.Generator().manual_seed(seed))
         if self.pretrained:

@@ -25,6 +25,11 @@ the exchanges are written out:
 The halo rows travel by ``dist.batch_isend_irecv``, except between gloo
 ranks on CUDA tensors, which gloo's point-to-point does not take: those
 exchange them through an all-gather over the spatial group.
+
+Both splits take a ResNet trunk alone: a PVT trunk's attention reads the
+whole map (its keys and values come from every row), and its linears are
+no convs to split, so :func:`make_split_forward` and
+:func:`build_sharded_forward` raise for it.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import MeshPlan, mesh_plan
+from ..models.backbone import require_resnet
 from ..models.layers import splitting
 from ..models.retinanet import fused_stem, fused_stem_applicable
 
@@ -302,6 +308,7 @@ class SplitForward(nn.Module):
     def __init__(self, module: nn.Module, plan: MeshPlan,
                  channels: Optional[Dict[nn.Conv2d, tuple]] = None):
         super().__init__()
+        require_resnet(module.backbone_kind, "the spatial split")
         self.module = module
         self.plan = plan
         self.channels = channels or {}
@@ -379,6 +386,7 @@ def build_sharded_forward(module: nn.Module, plan: MeshPlan, *, tensor_parallel:
     """
     channels: Dict[nn.Conv2d, tuple] = {}
     if tensor_parallel and plan.model_size > 1:
+        require_resnet(module.backbone_kind, "the tensor-parallel split")
         shards, dims = shard_variables(module, plan)
         for name, dim in dims.items():
             prefix, leaf = name.rsplit(".", 1)
