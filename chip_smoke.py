@@ -210,7 +210,8 @@ Then the flat postprocess and the parity tools (phase 15), at full width:
        its untimed first call);
     c. ``tools/torch_loss_parity.py`` at 800x1344, batch 4, 90 classes: both
        arms within JAX's bar of the oracle, the match kernel launched 5
-       times in its arm and not in the plain one.
+       times in its arm and not in the plain one, the focal pair's forward
+       5 times in each (the plain arm is the match's alone).
 
 Then the spatial and tensor-parallel meshes (phase 16,
 ``parallel/sharding.py``), R50-FPN at full width on two gloo ranks sharing
@@ -249,6 +250,22 @@ measured"):
     device time) beside their byte bounds (4 and 6 bytes an element), the
     plain version, and ATen's eval-mode ``F.batch_norm`` (+ ``relu_``)
     forward and backward, timed only, beside the Function's through autograd.
+
+Then the focal-loss kernel pair (phase 18, ``kernels/focal.py``; it runs
+right after phase 17, for the same reason):
+
+18. the forward and backward kernels against ``focal_loss_sums_plain`` and
+    ``focal_loss_backward_plain`` on the card: the per-image sums within
+    ``FOCAL_SUM_TOL`` of the sums of their terms' magnitudes, dx within 1
+    bf16 ulp of the larger value (bf16) or ``FOCAL_SUM_TOL`` of the largest
+    |dx| (f32), both twice bit for bit, at ``FOCAL_CASES`` (fewer classes
+    than a vector, heads and tails around an image's run, unaligned
+    storage, f32) and at R-50's five levels at batch 16, 800x1344, 90
+    classes, bf16; through autograd equal to the kernels; then a step's
+    forward and backward (CUDA events, and the profiler's device time)
+    beside their byte bounds, the plain version, and ATen's composition
+    (the f32 cast, one-hot and ``sigmoid_focal_loss`` under autograd) as
+    ``library_ms``. Phase 7 checks 2 x 5 launches a training step.
 
 The last lines are the ``kernels`` JSON, the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -779,6 +796,9 @@ def train_main_path(Model, Trainer, ConfigDict, reset_launch_counts, kernels):
     if launches["match_targets"] != 5 * TRAIN_STEPS:
         raise SystemExit(f"training launched match_targets {launches['match_targets']} times, "
                          f"not 5 x {TRAIN_STEPS}")
+    if launches["focal_loss"] != 2 * 5 * TRAIN_STEPS:
+        raise SystemExit(f"training launched focal_loss {launches['focal_loss']} times, not a "
+                         f"forward and a backward for each of 5 levels x {TRAIN_STEPS} steps")
     n_bn = len(r50_frozen_bn_shapes(TRAIN_BATCH, H, W))
     if launches["frozen_bn"] != 2 * n_bn * TRAIN_STEPS:
         raise SystemExit(f"training launched frozen_bn {launches['frozen_bn']} times, not a "
@@ -868,6 +888,7 @@ def training_phases(dev, results) -> tuple:
     fitted = {k: p.detach().cpu().clone() for k, p in model.net.module.named_parameters()}
     results["match_targets"]["launches"] = launches["match_targets"]
     results["frozen_bn"]["launches"] = launches["frozen_bn"]
+    results["focal_loss"]["launches"] = launches["focal_loss"]
     train_card_vs_cpu(Model, Trainer, ConfigDict)
 
     # 9. Times of the training path.
@@ -2710,7 +2731,7 @@ def flat_path_phases(dev, heads) -> None:
     reset_launch_counts()
     res = loss.run(H, W, LOSS_BATCH, 90, MAX_GT, dev)
     launches = read_launches()
-    want = {k: 5 if k == "match_targets" else 0 for k in launches}
+    want = {k: {"match_targets": 5, "focal_loss": 2 * 5}.get(k, 0) for k in launches}
     if launches != want:
         raise SystemExit(f"[parity] 15c launched {launches}, expected {want}")
     for name, d in res["rows"]:
@@ -3211,6 +3232,189 @@ def frozen_bn_phases(dev, results) -> None:
     log(f"[frozen_bn] phase 17 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# The focal pair beyond R-50's levels: (B, A, C, dtype, storage offset):
+# fewer classes than a vector, heads and tails around each image's run,
+# unaligned storage (one element a thread), f32.
+FOCAL_CASES = ((2, 37, 3, torch.bfloat16, 0), (3, 50, 7, torch.float32, 0),
+               (4, 1000, 20, torch.bfloat16, 0), (2, 693, 90, torch.bfloat16, 1),
+               (3, 101, 5, torch.float32, 3), (2, 693, 90, torch.float32, 0))
+FOCAL_LEVELS = (151200, 37800, 9450, 2457, 693)  # R-50's anchors a level at 800x1344
+FOCAL_SUM_TOL = 1e-6
+FOCAL_ALPHA, FOCAL_GAMMA = 0.25, 2.0
+
+
+def focal_case(b: int, a: int, c: int, dtype, offset: int, gen, dev) -> tuple:
+    """Seeded logits of [b, a, c] in `dtype` (storage `offset` elements in)
+    around the head's prior (-4.6), labels, matches (1% foreground, 2%
+    ignored, the rest background) and an upstream gradient [b]."""
+    flat = (torch.randn(b * a * c + offset, generator=gen, device=dev) * 2 - 4.6).to(dtype)
+    x = flat[offset:].view(b, a, c)
+    u = torch.rand(b, a, generator=gen, device=dev)
+    matches = torch.where(u < 0.01, 0, torch.where(u < 0.03, -2, -1)).to(torch.int32)
+    labels = torch.where(u < 0.01, torch.randint(1, c + 1, (b, a), generator=gen, device=dev),
+                         0).to(torch.int32)
+    grad = torch.rand(b, generator=gen, device=dev) + 0.5
+    return x, labels, matches, grad
+
+
+def check_focal(fl, x, labels, matches, grad) -> float:
+    """The kernels against the plain version: the sums within
+    ``FOCAL_SUM_TOL`` of the sums of their terms' magnitudes, dx within 1
+    bf16 ulp of the larger value (bf16) or ``FOCAL_SUM_TOL`` of the largest
+    |dx| (f32); each twice, bit for bit. Returns (the sum gap as a share of
+    its limit, the largest sum gap)."""
+    what = f"{tuple(x.shape)} {x.dtype} at offset {x.storage_offset()}"
+    out = fl._launch_forward(x, labels, matches, FOCAL_ALPHA, FOCAL_GAMMA)
+    again = fl._launch_forward(x, labels, matches, FOCAL_ALPHA, FOCAL_GAMMA)
+    ref = fl.focal_loss_sums_plain(x, labels, matches, FOCAL_ALPHA, FOCAL_GAMMA)
+    xf = x.float()
+    terms = ((torch.clamp(xf, min=0) + torch.log1p(torch.exp(-xf.abs()))).sum(-1)
+             * (matches >= -1)).sum(1)
+    del xf
+    share = float(((out - ref).abs() / (FOCAL_SUM_TOL * terms)).max())
+    if not torch.equal(out, again) or share > 1.0:
+        raise SystemExit(f"focal forward at {what}: sums {out.tolist()[:4]} against the plain "
+                         f"{ref.tolist()[:4]} ({share:.3g} of the limit), twice equal "
+                         f"{torch.equal(out, again)}")
+    dx = fl._launch_backward(grad, x, labels, matches, FOCAL_ALPHA, FOCAL_GAMMA)
+    dx_again = fl._launch_backward(grad, x, labels, matches, FOCAL_ALPHA, FOCAL_GAMMA)
+    dx_ref = fl.focal_loss_backward_plain(grad, x, labels, matches, FOCAL_ALPHA, FOCAL_GAMMA)
+    diff = (dx.float() - dx_ref.float()).abs()
+    if x.dtype == torch.bfloat16:
+        bad = int((diff > bf16_ulp(torch.maximum(dx.float().abs(), dx_ref.float().abs()))).sum())
+    else:
+        bad = int((diff > FOCAL_SUM_TOL * float(dx_ref.abs().max())).sum())
+    if bad or not torch.equal(dx, dx_again) or dx.dtype != x.dtype:
+        raise SystemExit(f"focal backward at {what}: {bad} elements outside the tolerance, "
+                         f"twice equal {torch.equal(dx, dx_again)}")
+    log(f"[focal] {what}: sums at {share:.3g} of their limit, dx {int((diff == 0).sum())} of "
+        f"{diff.numel()} equal to the plain version's, the rest within the tolerance")
+    return share, float((out - ref).abs().max())
+
+
+def focal_phases(dev, results) -> None:
+    """Phase 18: the focal forward and backward kernels against their
+    plain version at the other paths' shapes and at R-50's five levels
+    (batch 16, 800x1344, 90 classes, bf16); through autograd; then their
+    times a step beside their byte bounds, the plain version and ATen's
+    composition under autograd."""
+    fl = importlib.import_module("pytorch_retinanet_tpu_torch.kernels.focal")
+    from pytorch_retinanet_tpu_torch.ops import sigmoid_focal_loss
+
+    wrapper = fl.focal_loss_sums
+    t_phase = time.perf_counter()
+    log_build_report("focal", ("focal_kernel", "finalize"))
+    gen = torch.Generator(device=dev).manual_seed(18)
+    worst = max(check_focal(fl, *focal_case(*case, gen, dev)) for case in FOCAL_CASES)
+    log(f"[focal] kernels vs plain at {len(FOCAL_CASES)} other-path shapes: sums at worst "
+        f"{worst[0]:.3g} of their limit, dx within its tolerance, each twice bit for bit")
+
+    # Through autograd: the Function's sums and gradient are the kernels'.
+    x, labels, matches, grad = focal_case(2, 693, 90, torch.bfloat16, 0, gen, dev)
+    xr = x.clone().requires_grad_()
+    before = wrapper.launches
+    out = wrapper(xr, labels, matches, FOCAL_ALPHA, FOCAL_GAMMA)
+    out.backward(grad)
+    if wrapper.launches - before != 2 or not (
+            torch.equal(out.detach(), fl._launch_forward(x, labels, matches, FOCAL_ALPHA,
+                                                         FOCAL_GAMMA))
+            and torch.equal(xr.grad, fl._launch_backward(grad, x, labels, matches, FOCAL_ALPHA,
+                                                         FOCAL_GAMMA))):
+        raise SystemExit("focal through autograd differs from its kernels' launches")
+    log("[focal] through autograd: the sums and the logits' gradient equal the kernels' bit for bit")
+
+    cases = [focal_case(TRAIN_BATCH, a, 90, torch.bfloat16, 0, gen, dev) for a in FOCAL_LEVELS]
+    worst = max(check_focal(fl, *case) for case in cases)
+    torch.cuda.empty_cache()
+    elems = sum(x.numel() for x, *_ in cases)
+    side = sum(2 * 4 * l.numel() for _, l, _, _ in cases)  # labels and matches, int32
+    log(f"[focal] kernels vs plain at R-50's 5 levels ({elems / 1e6:.1f} M logits): sums at worst "
+        f"{worst[0]:.3g} of their limit (largest gap {worst[1]:.3g})")
+    r = results["focal_loss"]
+
+    def forward():
+        return [fl._launch_forward(x, l, m, FOCAL_ALPHA, FOCAL_GAMMA) for x, l, m, _ in cases]
+
+    def backward():
+        return [fl._launch_backward(g, x, l, m, FOCAL_ALPHA, FOCAL_GAMMA) for x, l, m, g in cases]
+
+    def plain():
+        for x, l, m, g in cases:
+            fl.focal_loss_sums_plain(x, l, m, FOCAL_ALPHA, FOCAL_GAMMA)
+            fl.focal_loss_backward_plain(g, x, l, m, FOCAL_ALPHA, FOCAL_GAMMA)
+
+    def through_autograd(fn, backward_too: bool):
+        """The 5 levels' sums under autograd, then (one engine call, as a
+        step's backward) their backwards."""
+        def step():
+            outs = [fn(x.detach().requires_grad_(), l, m) for x, l, m, _ in cases]
+            if backward_too:
+                torch.autograd.backward(outs, [g for *_, g in cases])
+        return step
+
+    def aten(x, labels, matches):
+        """The loss's classification term before the pair."""
+        onehot = (labels[..., None] == torch.arange(1, x.shape[-1] + 1, dtype=labels.dtype,
+                                                   device=x.device)).float()
+        elem = sigmoid_focal_loss(x.float(), onehot, FOCAL_ALPHA, FOCAL_GAMMA)
+        return (elem.sum(-1) * (matches >= -1).float()).sum(1)
+
+    def port(x, labels, matches):
+        return wrapper(x, labels, matches, FOCAL_ALPHA, FOCAL_GAMMA)
+
+    r["forward_ms"] = time_ms(forward, 10)
+    r["backward_ms"] = time_ms(backward, 10)
+    # The forward's pass and its finalize a level; the backward's pass.
+    fwd_device = complete_device_ms(forward, 2 * len(cases), r["forward_ms"])
+    bwd_device = complete_device_ms(backward, len(cases), r["backward_ms"])
+    r["forward_bound_ms"] = (elems * 2 + side) / HBM_BYTES_PER_S * 1e3  # bf16 logits in
+    r["backward_bound_ms"] = (elems * 4 + side) / HBM_BYTES_PER_S * 1e3  # logits in, dx out
+    r["ms"] = r["forward_ms"] + r["backward_ms"]
+    if fwd_device is not None and bwd_device is not None:
+        r["forward_device_ms"], r["backward_device_ms"] = fwd_device, bwd_device
+        r["device_ms"] = fwd_device + bwd_device
+
+    def device(ms, bound):
+        return "not measured" if ms is None else f"{ms:.3f}, {ms / bound:.2f}x the bound"
+    r["bound_ms"], r["bound_by"] = r["forward_bound_ms"] + r["backward_bound_ms"], "bytes"
+    r["max_abs_err"] = worst[1]
+    r["plain_ms"] = time_ms(plain, 2, warmup=1)
+    torch.cuda.empty_cache()
+    library = {"forward": time_ms(through_autograd(aten, False), 3),
+               "forward+backward": time_ms(through_autograd(aten, True), 3)}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    through_autograd(aten, True)()
+    torch.cuda.synchronize()
+    library_peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    through_autograd(port, True)()
+    torch.cuda.synchronize()
+    port_peak = torch.cuda.max_memory_allocated() - base
+    ours = {"forward": time_ms(through_autograd(port, False), 3),
+            "forward+backward": time_ms(through_autograd(port, True), 3)}
+    r["library_ms"] = library["forward+backward"]
+    r["library_forward_ms"] = library["forward"]
+    r["library_backward_ms"] = library["forward+backward"] - library["forward"]
+    r["autograd_forward_ms"] = ours["forward"]
+    r["autograd_backward_ms"] = ours["forward+backward"] - ours["forward"]
+    log(f"[time] focal_loss a R-50 step (batch {TRAIN_BATCH}, {H}x{W}, 90 classes, bf16): forward "
+        f"{r['forward_ms']:.3f} ms (bound {r['forward_bound_ms']:.3f} by bytes; device "
+        f"{device(fwd_device, r['forward_bound_ms'])}), backward {r['backward_ms']:.3f} ms "
+        f"(bound {r['backward_bound_ms']:.3f}; device {device(bwd_device, r['backward_bound_ms'])}); "
+        f"plain forward+backward {r['plain_ms']:.3f} ms; through autograd forward "
+        f"{r['autograd_forward_ms']:.3f}, backward {r['autograd_backward_ms']:.3f} ms against "
+        f"ATen's composition (f32 cast, one-hot, sigmoid_focal_loss) {r['library_forward_ms']:.3f} / "
+        f"{r['library_backward_ms']:.3f} ms; peak memory above the inputs through forward and "
+        f"backward {port_peak / 2**30:.3f} GiB against the composition's "
+        f"{library_peak / 2**30:.3f} GiB")
+    log_kernel_time(r)
+    del cases
+    torch.cuda.empty_cache()
+    log(f"[focal] phase 18 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card only",
@@ -3244,7 +3448,7 @@ def main() -> int:
 
     # 1. Build.
     t0 = time.time()
-    libs = build(["stem", "nms", "match", "bottleneck", "top2", "frozen_bn"])
+    libs = build(["stem", "nms", "match", "bottleneck", "top2", "frozen_bn", "focal"])
     log(f"[build] {len(libs)} kernels built in {time.time() - t0:.1f} s")
     for name, path in libs.items():
         for line in path.with_suffix(".log").read_text().splitlines():
@@ -3253,8 +3457,10 @@ def main() -> int:
 
     results = {k.name: {"name": k.name, "route": k.route, "source": k.source,
                         "replaces": k.replaces} for k in KERNELS}
-    # 17 runs first: late in a long run the card's profiler drops kernel events.
+    # 17 and 18 run first: late in a long run the card's profiler drops kernel events.
     frozen_bn_phases(dev, results)
+    torch.cuda.empty_cache()
+    focal_phases(dev, results)
     torch.cuda.empty_cache()
     gen = torch.Generator().manual_seed(0)
 

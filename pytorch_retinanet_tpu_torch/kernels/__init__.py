@@ -20,6 +20,7 @@ from .bottleneck import (
     fused_bottleneck_supported,
     pack_bottleneck_weights,
 )
+from .focal import focal_loss_backward_plain, focal_loss_sums, focal_loss_sums_plain
 from .frozen_bn import frozen_batch_norm, frozen_bn_backward_plain, frozen_bn_plain
 from .match import match_targets, match_targets_plain
 from .nms import nms_keep_mask, nms_keep_mask_plain
@@ -55,6 +56,10 @@ KERNELS: Tuple[Kernel, ...] = (
            "pytorch_retinanet_tpu_torch/csrc/frozen_bn.cu",
            "none: the JAX package leaves frozen BN to XLA's fusion; bound by bytes, 6.8 ms "
            "backward and 4.5 ms forward a R-50 step at batch 16, 800x1344 (3.81 G elements)"),
+    Kernel("focal_loss", focal_loss_sums, "cuda",
+           "pytorch_retinanet_tpu_torch/csrc/focal.cu",
+           "none: the JAX package leaves the focal loss to XLA's fusion; bound by bytes, 0.18 ms "
+           "forward and 0.35 ms backward a R-50 step at batch 16, 800x1344 (290.3 M logits)"),
 )
 
 
@@ -72,6 +77,9 @@ __all__ = [
     "bottleneck_phase_trace",
     "bottleneck_plain",
     "bottleneck_weight_tiles",
+    "focal_loss_backward_plain",
+    "focal_loss_sums",
+    "focal_loss_sums_plain",
     "frozen_batch_norm",
     "frozen_bn_backward_plain",
     "frozen_bn_plain",

@@ -10,6 +10,7 @@ that have no ``nvcc``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -17,6 +18,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, List
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -26,9 +29,10 @@ _COMMON_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 # The NMS and match IoUs (and the match encode) must round exactly like the
-# reference: no contraction into FMA and IEEE division.
+# reference, and the focal loss like its plain version: no contraction into
+# FMA and IEEE division.
 _EXACT = ["-fmad=false", "-prec-div=true"]
-_EXTRA_FLAGS: Dict[str, List[str]] = {"nms": _EXACT, "match": _EXACT}
+_EXTRA_FLAGS: Dict[str, List[str]] = {"nms": _EXACT, "match": _EXACT, "focal": _EXACT}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -101,3 +105,16 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build([name])[name]))
         _loaded[name] = lib
     return lib
+
+
+def on_device(dev: torch.device):
+    """`dev` as the current CUDA device for a launch (a no-op where it is
+    already: the wrappers sit on the step's host path)."""
+    if torch.cuda.current_device() == dev.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def stream_handle(dev: torch.device) -> int:
+    """The raw handle of `dev`'s current stream, for a launch."""
+    return torch.cuda.current_stream(dev).cuda_stream

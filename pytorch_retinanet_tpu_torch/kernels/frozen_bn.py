@@ -28,7 +28,6 @@ backward adds one to the tracer's ``frozen_bn.backward`` counter.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 from typing import Tuple
@@ -37,6 +36,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..utils.metrics import count
+from .build import on_device as _on, stream_handle as _stream
 
 Tensor = torch.Tensor
 
@@ -118,18 +118,6 @@ def _launch_args(x: Tensor, *tensors: Tensor) -> Tuple[int, int, int, bool, int]
                          f"here (channels-last {x.dtype}, {'un' if vec == 1 else ''}vectorised), "
                          f"got {c}")
     return n, c, h * w, cl, vec
-
-
-def _on(dev: torch.device):
-    """`dev` as the current CUDA device for a launch (a no-op where it is
-    already: the wrappers sit on the step's host path)."""
-    if torch.cuda.current_device() == dev.index:
-        return contextlib.nullcontext()
-    return torch.cuda.device(dev)
-
-
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 @functools.lru_cache(maxsize=1024)

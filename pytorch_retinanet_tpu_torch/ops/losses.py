@@ -16,7 +16,12 @@ ignored anchors in neither loss.
 The targets (matcher, matched-GT lookup, encode) are built under
 ``torch.no_grad()``: they are constants with respect to the parameters. On
 CUDA they come from the hand-written match kernel (``kernels/match.py``) by
-default; ``use_match_kernel=False`` takes the plain composition.
+default; ``use_match_kernel=False`` takes the plain composition for the
+match alone. The classification term is the focal pair of
+``kernels/focal.py`` on every device: one autograd Function on the logits
+in their dtype and the integer labels (the kernels on CUDA, their plain
+version on the CPU). :func:`sigmoid_focal_loss` and :func:`smooth_l1_loss`
+stay as the elementwise reference it is held to.
 ``match_mesh`` splits the match over the batch rows of a process group, as
 JAX's ``shard_map`` splits the kernel over a device mesh.
 """
@@ -37,6 +42,7 @@ from ..config import (
     SMOOTH_L1_LOSS_BETA,
 )
 from ..kernels import match as _match
+from ..kernels.focal import focal_loss_sums
 from ..parallel import MeshPlan
 
 Tensor = torch.Tensor
@@ -103,9 +109,10 @@ def retinanet_loss(
       gt_labels: [B, N] int labels in [1, num_classes].
       gt_valid: [B, N] bool mask of real GT rows.
       reduction: "mean" (batch-averaged scalars) or "none" (per-image [B]).
-      use_match_kernel: ``None`` takes the match kernel when the logits lie
-        on CUDA and the plain composition on the CPU; ``True`` on the CPU
-        raises.
+      use_match_kernel: for the match alone: ``None`` takes the match
+        kernel when the logits lie on CUDA and the plain composition on the
+        CPU; ``True`` on the CPU raises. The focal term takes its kernels
+        wherever the logits lie on CUDA.
 
     Returns:
       {"classification_loss", "regression_loss"}.
@@ -191,12 +198,14 @@ def _loss_sums(
 ):
     """Unnormalized per-image sums over one anchor set: (reg_sum [B],
     cls_sum [B], num_fg [B]), so that levels can be combined."""
+    if cls_logits.shape[-1] != num_classes:
+        raise ValueError(f"cls_logits has {cls_logits.shape[-1]} classes, num_classes is "
+                         f"{num_classes}")
     on_cuda = cls_logits.device.type == "cuda"
     if use_match_kernel is None:
         use_match_kernel = on_cuda
     if use_match_kernel and not on_cuda:
         raise ValueError("use_match_kernel=True needs CUDA tensors: the match kernel has no CPU mode")
-    cls_logits = cls_logits.float()
     box_deltas = box_deltas.float()
     with torch.no_grad():
         fn = _match.match_targets if use_match_kernel else _match.match_targets_plain
@@ -208,15 +217,10 @@ def _loss_sums(
         )
         fg_mask = matches >= 0  # [B, A]
         num_fg = fg_mask.sum(dim=1)  # [B]
-        # One-hot of label - 1 over C classes; background rows all zero.
-        cls_targets = (fg_labels[..., None] == torch.arange(
-            1, num_classes + 1, dtype=fg_labels.dtype, device=fg_labels.device)).float()
-        not_ignored = (matches >= -1).float()
 
     reg_elem = smooth_l1_loss(box_deltas, reg_targets, beta)  # [B, A, 4]
     reg_sum = (reg_elem.sum(dim=-1) * fg_mask.float()).sum(dim=1)
-    cls_elem = sigmoid_focal_loss(cls_logits, cls_targets, alpha, gamma)  # [B, A, C]
-    cls_sum = (cls_elem.sum(dim=-1) * not_ignored).sum(dim=1)
+    cls_sum = focal_loss_sums(cls_logits, fg_labels, matches, alpha, gamma)
     return reg_sum, cls_sum, num_fg
 
 

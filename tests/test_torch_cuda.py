@@ -23,7 +23,11 @@ card equal to eager ``_predict_impl`` bit for bit, and the serve loop over
 it equal to ``predict`` on the same full batches (labels exactly, scores
 within 1e-5, boxes within 1e-3 px); the frozen-BN pair's y and dx bit for
 bit, its parameter gradients within 2**-14 of the sums of their terms'
-magnitudes (another order of addition).
+magnitudes (another order of addition); the focal pair's per-image sums
+within 1e-6 of the sums of their terms' magnitudes (another order of
+addition) and its dx within 1 bf16 ulp of the larger value (bf16) or 1e-6 of
+the largest |dx| (f32) of its plain version run on the card, each twice bit
+for bit.
 """
 
 from __future__ import annotations
@@ -750,3 +754,125 @@ def test_frozen_bn_training_step_launches_the_pair(dev):
     before = frozen_batch_norm.launches
     net.predict([np.zeros((64, 96, 3), np.uint8)])
     assert frozen_batch_norm.launches == before
+
+
+# The focal pair: (B, A, C, dtype, storage offset) over its paths: 16-byte
+# vectors with heads and tails around each image's run (C * A not a whole
+# number of vectors), fewer classes than a vector, unaligned storage (one
+# element a thread), and R-50's P4 level at batch 16, 800x1344.
+FOCAL_SHAPES = [(2, 37, 3, torch.bfloat16, 0), (3, 50, 7, torch.float32, 0),
+                (2, 693, 90, torch.bfloat16, 0), (2, 693, 90, torch.float32, 0),
+                (4, 1000, 20, torch.bfloat16, 0), (2, 693, 90, torch.bfloat16, 1),
+                (3, 101, 5, torch.float32, 3), (16, 37800, 90, torch.bfloat16, 0)]
+
+
+def _focal_case(dev, b, a, c, dtype, offset, seed=0):
+    """Logits (storage `offset` elements in), labels, matches with
+    foreground, background and ignored anchors, and an upstream gradient."""
+    g = torch.Generator(device=dev).manual_seed(seed + c)
+    flat = (torch.randn(b * a * c + offset, generator=g, device=dev) * 3 - 2).to(dtype)
+    x = flat[offset:].view(b, a, c)
+    kind = torch.randint(0, 8, (b, a), generator=g, device=dev)  # 0 ignored, 1 fg, else bg
+    matches = torch.where(kind == 1, torch.zeros_like(kind), torch.where(kind == 0, -2, -1))
+    labels = torch.where(kind == 1, torch.randint(1, c + 1, (b, a), generator=g, device=dev), 0)
+    grad = torch.rand(b, generator=g, device=dev) + 0.5
+    return x, labels.to(torch.int32), matches.to(torch.int32), grad
+
+
+@pytest.mark.parametrize("b,a,c,dtype,offset", FOCAL_SHAPES)
+def test_focal_kernels_match_plain(dev, b, a, c, dtype, offset):
+    """The sums within 1e-6 of the sums of their terms' magnitudes, dx
+    within 1 bf16 ulp (bf16) or 1e-6 of the largest |dx| (f32); both twice
+    bit for bit."""
+    import importlib
+
+    fl = importlib.import_module("pytorch_retinanet_tpu_torch.kernels.focal")
+    x, labels, matches, grad = _focal_case(dev, b, a, c, dtype, offset)
+    assert fl._launch_args(x)[3] == (1 if offset else 16 // x.element_size())
+    out = fl._launch_forward(x, labels, matches, 0.25, 2.0)
+    again = fl._launch_forward(x, labels, matches, 0.25, 2.0)
+    ref = fl.focal_loss_sums_plain(x, labels, matches, 0.25, 2.0)
+    assert out.dtype == torch.float32 and torch.equal(out, again)
+    xf = x.float()
+    e = torch.exp(-xf.abs())
+    terms = ((torch.clamp(xf, min=0) + torch.log1p(e)).sum(-1) * (matches >= -1)).sum(1)
+    assert bool(((out - ref).abs() <= 1e-6 * terms).all()), (out, ref)
+    dx = fl._launch_backward(grad, x, labels, matches, 0.25, 2.0)
+    dx_again = fl._launch_backward(grad, x, labels, matches, 0.25, 2.0)
+    dx_ref = fl.focal_loss_backward_plain(grad, x, labels, matches, 0.25, 2.0)
+    assert dx.dtype == dtype and dx.shape == x.shape and torch.equal(dx, dx_again)
+    diff = (dx.float() - dx_ref.float()).abs()
+    if dtype == torch.bfloat16:
+        _, ex = torch.frexp(torch.maximum(dx.float().abs(), dx_ref.float().abs()))
+        assert bool((diff <= torch.ldexp(torch.ones_like(diff), ex - 8)).all())
+    else:
+        assert float(diff.max()) <= 1e-6 * float(dx_ref.abs().max())
+    assert bool((dx[matches < -1] == 0).all())
+
+
+def test_focal_through_autograd_equals_the_kernels(dev):
+    from pytorch_retinanet_tpu_torch.kernels import focal_loss_sums
+    import importlib
+
+    fl = importlib.import_module("pytorch_retinanet_tpu_torch.kernels.focal")
+    x, labels, matches, grad = _focal_case(dev, 2, 693, 90, torch.bfloat16, 0, seed=3)
+    xr = x.clone().requires_grad_()
+    before = focal_loss_sums.launches
+    out = focal_loss_sums(xr, labels, matches, 0.25, 2.0)
+    out.backward(grad)
+    assert focal_loss_sums.launches - before == 2
+    assert torch.equal(out.detach(), fl._launch_forward(x, labels, matches, 0.25, 2.0))
+    assert torch.equal(xr.grad, fl._launch_backward(grad, x, labels, matches, 0.25, 2.0))
+
+
+def test_focal_takes_other_float_dtypes_as_f32(dev):
+    """f16 and f64 logits on the card go through the kernels as f32, as the
+    composition before them cast every dtype; the gradient comes back in
+    the logits' dtype. An empty anchor set sums to 0 without a launch."""
+    from pytorch_retinanet_tpu_torch.kernels import focal_loss_sums
+
+    x, labels, matches, grad = _focal_case(dev, 2, 693, 90, torch.float32, 0, seed=5)
+    want = focal_loss_sums(x, labels, matches, 0.25, 2.0)
+    for dtype in (torch.float16, torch.float64):
+        xd = x.to(dtype).requires_grad_()
+        got = focal_loss_sums(xd, labels, matches, 0.25, 2.0)
+        got.backward(grad)
+        assert got.dtype == torch.float32 and xd.grad.dtype == dtype
+        ref = focal_loss_sums(xd.detach().float(), labels, matches, 0.25, 2.0)
+        assert torch.equal(got, ref)
+    assert torch.equal(focal_loss_sums(x.double(), labels, matches, 0.25, 2.0), want)
+    empty = torch.zeros(2, 0, 90, device=dev, requires_grad=True)
+    none = torch.zeros(2, 0, dtype=torch.int32, device=dev)
+    out = focal_loss_sums(empty, none, none, 0.25, 2.0)
+    out.sum().backward()
+    assert out.tolist() == [0.0, 0.0] and empty.grad.shape == empty.shape
+
+
+def test_focal_training_step_launches_the_pair(dev):
+    """A resnet18 training step's per-level loss (the Trainer's) launches
+    the pair once a level each way (2 x 5) on the bf16 logits; the
+    concatenated loss of ``forward`` once each way on f32 logits; predict
+    not at all."""
+    from pytorch_retinanet_tpu_torch.kernels import focal_loss_sums
+
+    net = _small_bf16_net()
+    images = torch.rand(2, 64, 96, 3, device=dev)
+    gt = (torch.tensor([[[4.0, 6.0, 40.0, 50.0]]] * 2, device=dev),
+          torch.tensor([[1], [2]], device=dev), torch.ones(2, 1, dtype=torch.bool, device=dev))
+    net.module.train()
+    before = focal_loss_sums.launches
+    cls_levels, box_levels = net.module(images, return_levels=True)
+    assert all(c.dtype == torch.bfloat16 for c in cls_levels)
+    losses = retinanet_loss_levels(cls_levels, box_levels, net._anchors_for((64, 96)), *gt,
+                                   num_classes=net.num_classes)
+    (losses["classification_loss"] + losses["regression_loss"]).backward()
+    torch.cuda.synchronize()
+    assert focal_loss_sums.launches - before == 2 * 5
+    before = focal_loss_sums.launches
+    losses = net.forward(images, dict(zip(("boxes", "labels", "valid"), gt)))
+    (losses["classification_loss"] + losses["regression_loss"]).backward()
+    torch.cuda.synchronize()
+    assert focal_loss_sums.launches - before == 2
+    before = focal_loss_sums.launches
+    net.predict([np.zeros((64, 96, 3), np.uint8)])
+    assert focal_loss_sums.launches == before
