@@ -576,7 +576,7 @@ def test_default_trainer_installs_no_handler():
 def test_signal_from_the_loader_stops_before_that_step(tmp_path):
     """SIGTERM while the loader fetches epoch 2's first batch: no step of
     epoch 2 runs, so the resume continues the uninterrupted run exactly
-    (chip_smoke.py phase 10 at full width)."""
+    (``tests/test_torch_card_train.py`` at full width on the card)."""
 
     class Loader:
         def __init__(self):

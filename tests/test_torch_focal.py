@@ -1,8 +1,8 @@
 """The focal loss's per-image sums under autograd (``kernels/focal.py``) on the CPU.
 
 On the CPU the autograd Function computes its plain version, whose
-operations the CUDA kernels repeat (``tests/test_torch_cuda.py`` and
-``chip_smoke.py`` phase 18 hold them to it on the card). Held here against
+operations the CUDA kernels repeat (``tests/test_torch_cuda.py`` holds them
+to it on the card, at R-50's five levels too). Held here against
 autograd through :func:`sigmoid_focal_loss` on a one-hot target of the
 same dtype, masked to the anchors with ``matches >= -1`` and summed per
 image: the composition the loss ran before, and still the reference.

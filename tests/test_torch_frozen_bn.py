@@ -1,8 +1,8 @@
 """Frozen batch norm under autograd (``kernels/frozen_bn.py``) on the CPU.
 
 On the CPU the autograd Function computes its plain version, whose
-operations the CUDA kernels repeat (``chip_smoke.py`` phase 17 holds them to
-it on the card). Held here against autograd through ``F.batch_norm``
+operations the CUDA kernels repeat (``tests/test_torch_cuda.py`` holds them
+to it on the card, at R-50's 53 BNs too). Held here against autograd through ``F.batch_norm``
 (+``torch.relu``), the path frozen BN took before and still takes without
 autograd, and against ``gradcheck`` in f64.
 

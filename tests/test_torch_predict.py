@@ -194,18 +194,22 @@ def test_import_pulls_in_no_jax():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
-def test_no_module_of_the_port_nor_chip_smoke_imports_jax():
+def test_no_module_of_the_port_nor_its_card_tests_imports_jax():
     """Every import statement in the port's sources, its examples and tools
-    (``examples/torch_*.py``, ``tools/torch_*.py``) and chip_smoke.py names
-    neither jax / flax nor the JAX package (its jax-free modules included:
-    the port keeps its own copies)."""
+    (``examples/torch_*.py``, ``tools/torch_*.py``) and its card tests
+    (``tests/test_torch_cuda.py``, ``tests/test_torch_card_*.py`` and their
+    ``tests/torch_card.py``, which run on a card without jax) names neither
+    jax / flax nor the JAX package (its jax-free modules included: the port
+    keeps its own copies)."""
     import ast
     from pathlib import Path
 
     root = Path(__file__).resolve().parents[1]
     files = (sorted((root / "pytorch_retinanet_tpu_torch").rglob("*.py"))
              + sorted((root / "examples").glob("torch_*.py"))
-             + sorted((root / "tools").glob("torch_*.py")) + [root / "chip_smoke.py"])
+             + sorted((root / "tools").glob("torch_*.py"))
+             + [root / "tests" / "test_torch_cuda.py", root / "tests" / "torch_card.py"]
+             + sorted((root / "tests").glob("test_torch_card_*.py")))
     assert len(files) > 54
     bad = []
     for path in files:

@@ -70,6 +70,7 @@ from pytorch_retinanet_tpu_torch.parallel.sharding import shard_rows, shard_vari
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(__file__)), "tools"))
 import torch_multihost_smoke as mh  # noqa: E402
+from torch_main_path import seeded_gt  # noqa: E402
 
 FORWARD_TOL = 1e-4  # JAX's tests/test_sharding.py bar, absolute and relative
 HALO_TOL = 1e-12
@@ -79,6 +80,18 @@ LOSS_RTOL = 1e-6
 # process's sum over all rows.
 GRAD_RTOL = 1e-5
 WORLD = 4
+# The small spatial run of tests/test_torch_card_parallel.py: f32 resnet18,
+# 90 classes, 128x192, prior 0.1, frozen BN, 2 SGD steps on 2 ranks.
+SMALL_SPATIAL_RUN = {
+    "model": {"backbone_kind": "resnet18", "num_classes": 90, "min_size": 128, "max_size": 192,
+              "compute_dtype": "float32", "prior": 0.1, "freeze_bn": True},
+    "optimizer": {"class_name": "torch.optim.SGD",
+                  "params": {"lr": 0.01, "weight_decay": 0.001, "momentum": 0.9}},
+    "trainer": {"max_steps": 2}, "spatial": 2}
+SMALL_UPDATE_RTOL = 1e-4
+# The split's first update against one process's, of the gap between one
+# process and itself with its batch rows in another order.
+ORDER_NOISE_FACTOR = 4.0
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -347,3 +360,47 @@ def test_live_bn_refused_at_fit_but_validates(ranks):
         assert r["live_fit"] is not None and "freeze_bn=True" in r["live_fit"]
         for k, v in ranks["refs"]["live_val"].items():
             assert abs(r["live_val"][k] - v) <= LOSS_RTOL * abs(v), k
+
+
+def test_spatial_update_stays_within_one_process_order_noise(tmp_path):
+    """The card's small spatial run on a draw where its first-update bar
+    (``SMALL_UPDATE_RTOL`` of each tensor's largest update + 2 ulp) is below
+    the order noise of the class head: uint8 / 255 images and ``seeded_gt``
+    boxes from ``default_rng(8)``, the card run's counts. One process on 2
+    threads sums the CPU's convolution gradients in another order than on 1
+    and moves ``class_subnet.2``'s update about twice past that bar. The
+    2-rank split (1 thread a rank) is held against one process on 1 thread,
+    tensor by tensor, within the bar or ``ORDER_NOISE_FACTOR`` times that
+    noise; its losses within ``LOSS_RTOL``, its ranks bit for bit."""
+    rng = np.random.default_rng(8)
+    batches = []
+    for n_valid in ([5, 0, 3, 1], [2, 4, 0, 6]):
+        images = rng.integers(0, 256, (4, 128, 192, 3), dtype=np.uint8) / np.float32(255)
+        batches.append({"images": images.astype(np.float32),
+                        **seeded_gt(rng, n_valid, 128, 192, 90)})
+    model = {**mh.TRAIN_MODEL, **SMALL_SPATIAL_RUN["model"]}
+    state = mh.seeded_state(model, seed=3)
+    torch.save({"batches": batches, "state": state}, tmp_path / "data.pt")
+    run = mh.RankRun(mh.job_train, {"data": str(tmp_path / "data.pt"),
+                                    "runs": {"spatial": SMALL_SPATIAL_RUN}},
+                     world=2, timeout=600, workdir=str(tmp_path / "ranks"))
+    fits = {}
+    for threads in (1, 2):
+        torch.set_num_threads(threads)
+        t, _, first = mh.fit_served(model, batches, state, SMALL_SPATIAL_RUN["trainer"],
+                                    optimizer=SMALL_SPATIAL_RUN["optimizer"])
+        fits[threads] = (list(t.logger_.meters["loss"].window), first)
+    torch.set_num_threads(1)
+    out = run.join()
+    assert not out["timed_out"] and not any(out["exitcodes"]), out
+    ranks = [r["spatial"] for r in out["results"]]
+    assert ranks[0]["digest"] == ranks[1]["digest"] and ranks[0]["losses"] == ranks[1]["losses"]
+    losses, want = ranks[0]["losses"], fits[1][0]
+    assert len(losses) == len(want) == 2
+    assert all(abs(a - b) <= LOSS_RTOL * abs(b) for a, b in zip(losses, want)), (losses, want)
+    got = torch.load(tmp_path / "ranks" / "spatial.pt", weights_only=True)
+    gaps = mh.update_gaps(got, fits[1][1], state, SMALL_UPDATE_RTOL)
+    noise = mh.update_gaps(fits[2][1], fits[1][1], state, SMALL_UPDATE_RTOL)
+    outside = {k: (g, noise[k]) for k, g in gaps.items()
+               if g > max(1.0, ORDER_NOISE_FACTOR * noise[k])}
+    assert not outside, outside

@@ -14,8 +14,8 @@ img/s of its remat setting.
     python tools/torch_bench_train.py --device cpu --backbone resnet18 \
         --size 64x96 --batches 2 --iters 1 --out /tmp/t.json
 
-``make_trainer`` and ``seeded_batch`` are shared with
-``tools/torch_profile_backward.py``.
+``make_trainer`` and ``seeded_batch`` (``tools/torch_main_path.py``'s) are
+shared with ``tools/torch_profile_backward.py``.
 """
 
 from __future__ import annotations
@@ -34,55 +34,21 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from pytorch_retinanet_tpu_torch import ConfigDict, RetinaNetModel, Trainer  # noqa: E402
+from pytorch_retinanet_tpu_torch import ConfigDict, Trainer  # noqa: E402
 from pytorch_retinanet_tpu_torch.models.retinanet import resolve_device  # noqa: E402
+from torch_main_path import HPARAMS as MAIN_PATH, seeded_batch, served_model_class  # noqa: E402
 from torch_parity_report import device_label, synchronize  # noqa: E402
 
-MAX_GT = 100
-# configs/hparams.yaml's model and optimizer, written out (PyYAML is optional).
-HPARAMS = {
-    "model": {"backbone_kind": "resnet50", "num_classes": 90, "freeze_bn": True,
-              "min_size": 800, "max_size": 1333, "pretrained": False},
-    "optimizer": {"class_name": "torch.optim.SGD",
-                  "params": {"lr": 0.001, "weight_decay": 0.001, "momentum": 0.9}},
-}
+# configs/hparams.yaml's model and optimizer (no scheduler: a step at a time).
+HPARAMS = {k: MAIN_PATH[k] for k in ("model", "optimizer")}
 KNEE_SHARE = 0.95
-
-
-def seeded_batch(batch: int, h: int, w: int, num_classes: int, seed: int = 7) -> Dict[str, Any]:
-    """uint8 images and padded GT (1-100 boxes of 16-400 px an image), from a seed."""
-    rng = np.random.default_rng(seed)
-    images = rng.integers(0, 256, (batch, h, w, 3), dtype=np.uint8)
-    n_valid = rng.integers(1, MAX_GT + 1, batch)
-    ctr = rng.uniform([0, 0], [w, h], (batch, MAX_GT, 2))
-    wh = rng.uniform(16, 400, (batch, MAX_GT, 2))
-    boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1).clip(0, [w, h, w, h])
-    valid = np.arange(MAX_GT)[None] < n_valid[:, None]
-    boxes = np.where(valid[..., None], boxes, 0.0).astype(np.float32)
-    labels = np.where(valid, rng.integers(1, num_classes + 1, (batch, MAX_GT)), 0)
-    return {"images": images, "boxes": boxes, "labels": labels.astype(np.int32), "valid": valid}
-
-
-class _Served(RetinaNetModel):
-    """The task model on a list of batches (no dataset on disk)."""
-
-    loader: List[Dict[str, Any]] = []
-
-    def prepare_data(self):
-        pass
-
-    def train_dataloader(self, shard=0, num_shards=1):
-        return self.loader
-
-    def val_dataloader(self, shard=0, num_shards=1):
-        return None
 
 
 def make_trainer(model_conf: Dict[str, Any], batch: Dict[str, Any], device: torch.device):
     """A model of ``HPARAMS`` updated by `model_conf` on `device`, and its
     Trainer after one ``fit`` step on `batch` (the optimizer built, cuDNN's
     plans made); the batch itself goes back on the device."""
-    model = _Served(ConfigDict(HPARAMS).merge({"model": model_conf}), device=device)
+    model = served_model_class()(ConfigDict(HPARAMS).merge({"model": model_conf}), device=device)
     model.loader = [batch]
     trainer = Trainer(max_steps=1, warmup_steps=0, log_every_n_steps=1, num_sanity_val_steps=0,
                       logger=False)

@@ -1,4 +1,4 @@
-"""Where the R50-FPN engine fit of ``chip_smoke.py`` phase 10 stays finite, and why.
+"""Where the R50-FPN engine fit of ``tests/test_torch_card_train.py`` stays finite, and why.
 
 Run from the root of a checkout on a machine with the card:
 ``python3 tools/torch_engine_divergence.py [--root DIR] [--plain-only]``.
@@ -7,24 +7,26 @@ of an earlier commit, say) with this checkout's fit; ``--plain-only`` runs
 only the fits that such an earlier Trainer takes (frozen BN; no
 checkpoints, loggers or profiler).
 
-The fit is phase 10's first: R50-FPN, 90 classes, ``chip_smoke.HPARAMS``
-(SGD, lr 0.001, momentum 0.9, no gradient clipping), the detector's seed-0
-random weights, phase 10's seeded uint8 batches of 16 at 800x1344, 2 epochs
-of 3 steps and a 1-batch validation loader. It runs with ``warmup_steps``
-0 and 500 (500 is capped at a fifth of the 6 planned steps: one step at
-0.001 of the LR), each once with a plain Trainer and once wired as phase
-10 wires it (``checkpoint_dir``, EarlyStopping, LearningRateMonitor, CSV
-and TensorBoard loggers, the profiler over steps 2-3), and once more with
-live batch norm (``freeze_bn=False``) and a plain Trainer. Per fit it prints each step's
-LR and loss, and the step at which the Trainer raised on a non-finite
-loss, if it did; the last line is all of it as one JSON object. Imports
-nothing of JAX.
+The fit is that test's engine fit: R50-FPN, 90 classes, ``HPARAMS``
+(``configs/hparams.yaml``: SGD, lr 0.001, momentum 0.9, no gradient
+clipping, ReduceLROnPlateau on val_loss), the detector's seed-0 random
+weights, seeded uint8 batches of 16 at 800x1344 (``HPARAMS``,
+``seeded_batch`` and the step recorder are ``tools/torch_main_path.py``'s),
+2 epochs of 3 steps and a 1-batch validation loader. It runs with
+``warmup_steps`` 0 and 500 (500 is capped at a fifth of the 6 planned
+steps: one step at 0.001 of the LR), each once with a plain Trainer and
+once wired as the test wires it (``checkpoint_dir``, EarlyStopping,
+LearningRateMonitor, CSV and TensorBoard loggers, the profiler over steps
+2-3), and once more with live batch norm (``freeze_bn=False``) and a plain
+Trainer. Per fit it prints each train step's LR and loss (a validation
+step as ``("eval", 16)``), and the step at which the Trainer raised on a
+non-finite loss, if it did; the last line is all of it as one JSON object.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
 import os
 import shutil
@@ -34,7 +36,10 @@ import tempfile
 
 import torch
 
+from torch_main_path import HPARAMS, recording, seeded_batch, served_model_class
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+EPOCHS, STEPS, BATCH, BUCKET = 2, 3, 16, (800, 1344)
 
 
 def main() -> int:
@@ -48,17 +53,13 @@ def main() -> int:
         return 1
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
-    spec = importlib.util.spec_from_file_location("smoke", os.path.join(ROOT, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    from pytorch_retinanet_tpu_torch import ConfigDict, RetinaNetModel, Trainer
+    from pytorch_retinanet_tpu_torch import ConfigDict, Trainer
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
-    smoke.log(f"[divergence] checkout {root}; card {smi}")
-    Model = smoke.served_model(RetinaNetModel)
-    batches = smoke.seeded_batches(smoke.ENGINE_STEPS, smoke.TRAIN_BATCH, smoke.H, smoke.W, seed=10)
-    val = smoke.seeded_batches(1, smoke.TRAIN_BATCH, smoke.H, smoke.W, seed=11)
+    print(f"[divergence] checkout {root}; card {smi}", flush=True)
+    batches = [seeded_batch(BATCH, *BUCKET, 90, seed=10 + i) for i in range(STEPS)]
+    val = [seeded_batch(BATCH, *BUCKET, 90, seed=20)]
     work = tempfile.mkdtemp(prefix="divergence-")
     results = []
     try:
@@ -79,25 +80,24 @@ def main() -> int:
                           callbacks=[EarlyStopping(patience=5), LearningRateMonitor(),
                                      TensorBoardLogger(os.path.join(run, "logs"))],
                           logger=CSVLogger(os.path.join(run, "logs")))
-            hp = ConfigDict(smoke.HPARAMS).merge({"model": {"freeze_bn": freeze_bn}})
-            model = Model(hp)
+            model = served_model_class()(
+                ConfigDict(HPARAMS).merge({"model": {"freeze_bn": freeze_bn}}))
             model.loader, model.val_loader = batches, val
-            trainer = Trainer(max_epochs=smoke.ENGINE_EPOCHS, warmup_steps=warmup,
+            trainer = Trainer(max_epochs=EPOCHS, warmup_steps=warmup,
                               log_every_n_steps=1, **kw)
             if wired:
                 trainer.profiler = ProfilerHook(os.path.join(run, "profile"), start_step=1,
                                                 num_steps=2)
-            seen = smoke.recording(trainer)
+            steps = recording(trainer)
             raised = None
             try:
                 trainer.fit(model)
             except FloatingPointError:
                 raised = trainer.global_step
-            steps = [s for s in seen if s[0] != "eval"]
             results.append({"warmup_steps": warmup, "wired": wired, "freeze_bn": freeze_bn,
                             "steps": steps, "non_finite_at_step": raised})
-            smoke.log(f"[divergence] warmup_steps={warmup} wired={wired} freeze_bn="
-                      f"{freeze_bn}: (lr, loss) {steps}; raised at step {raised}")
+            print(f"[divergence] warmup_steps={warmup} wired={wired} freeze_bn={freeze_bn}: "
+                  f"(lr, loss) {steps}; raised at step {raised}", flush=True)
             del model, trainer
             torch.cuda.empty_cache()
     finally:

@@ -4,30 +4,28 @@ Run from the root of a checkout on a machine with the card:
 ``python3 tools/torch_match_nms_profile.py [--root DIR]``. ``--root`` runs
 another checkout's package and kernels (a ``git archive`` of an earlier
 commit, say) with this checkout's measurement, so that two versions can be
-compared in one call, in turns; an earlier ``chip_smoke.py`` may not print
-the device time. It builds ``match`` and ``nms`` from that checkout's
-``csrc`` and reports, from one ``torch.profiler`` window per case (device
-time per kernel) and CUDA events around the same calls:
+compared in one call, in turns. It builds ``match`` and ``nms`` from that
+checkout's ``csrc`` and reports, from one ``torch.profiler`` window per case
+(device time per kernel) and CUDA events around the same calls:
 
-1. the match kernel per level and summed over the five levels, at
-   ``chip_smoke.py`` phase 6's training shapes (batch 16, the 800x1344
-   bucket, 100 padded GT rows, the same seeded GT), with the share of
-   (anchor, valid GT row) pairs that the block cull stages; then the match
-   wrapper's host time at P3, its output allocations and its C call alone;
-2. the NMS kernel on the main path's candidates (phase 4's R50-FPN, prior
-   0.5, seed 0, 32 seeded images), then that detector's forward and predict
-   composition (``_predict_impl``) on the same batch with CUDA events, the
-   postprocess alone (its launches, device and host time), and phase 5's
-   end-to-end ``predict`` of the 32 images (median of 5, host clock).
+1. the match kernel per level and summed over the five levels, at the
+   training shapes of ``tools/torch_kernel_table.py`` (batch 16, the
+   800x1344 bucket, 100 padded GT rows), with the share of (anchor, GT row)
+   pairs that the block cull stages; then the match wrapper's host time at
+   P3, its output allocations and its C call alone;
+2. the NMS kernel on predict's candidates (R50-FPN, prior 0.5, seed 0, 32
+   seeded images), then that detector's forward and predict composition
+   (``_predict_impl``) on the same batch with CUDA events, the postprocess
+   alone (its launches, device and host time), and the end-to-end
+   ``predict`` of the 32 images (median of 5, host clock).
 
-The helpers (the profiler window, the seeded inputs) are this checkout's
-``chip_smoke.py``. Imports nothing of JAX.
+The inputs and the profiler window are ``tools/torch_kernel_table.py``'s.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import os
 import subprocess
 import sys
@@ -83,63 +81,65 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_match_nms_profile: needs a CUDA card", file=sys.stderr)
         return 2
+    import torch_kernel_table as table  # this checkout's; it imports the package lazily
+
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
-    spec = importlib.util.spec_from_file_location("smoke", os.path.join(ROOT, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
 
     from pytorch_retinanet_tpu_torch.kernels import match_targets, nms_keep_mask
     from pytorch_retinanet_tpu_torch.kernels.build import build
-    from pytorch_retinanet_tpu_torch.models.retinanet import Retinanet, apply_detector
-    from pytorch_retinanet_tpu_torch.ops import (
-        generate_anchors_per_level, process_detections_multilevel_batch,
-    )
+    from pytorch_retinanet_tpu_torch.models.retinanet import apply_detector
+    from pytorch_retinanet_tpu_torch.ops import process_detections_multilevel_batch
 
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     build(["match", "nms"])
-    smoke.log(f"[profile] checkout {root}; card {smi}")
+    print(f"[profile] checkout {root}; card {smi}", flush=True)
 
-    anchors_levels = [torch.from_numpy(a).to(dev) for a in generate_anchors_per_level((smoke.H, smoke.W))]
-    gt = smoke.match_inputs(anchors_levels, dev)
-    smoke.trace_match(match_targets, anchors_levels, gt)
-    host = match_host_breakdown(anchors_levels[0], gt)
-    smoke.log(f"[host] match wrapper at level 0: {host['wrapper']:.1f} us per call; its three "
-              f"output allocations {host['allocations']:.1f} us; the C call alone {host['c_call']:.1f} us")
+    levels, gt = table.match_levels(dev)
+    print(table.profile_line("match_targets, the five levels of one step",
+                             table.profile(lambda: [match_targets(a, *gt) for a in levels], 20)))
+    host = match_host_breakdown(levels[0], gt)
+    print(f"[host] match wrapper at level 0: {host['wrapper']:.1f} us per call; its three output "
+          f"allocations {host['allocations']:.1f} us; the C call alone {host['c_call']:.1f} us")
 
-    _, images, batch, sizes = smoke.main_path_batch(dev)
-    net = Retinanet(backbone_kind="resnet50", num_classes=90, pretrained=False, prior=0.5, seed=0)
-    cboxes, cvalid = smoke.nms_candidates(net, batch, sizes)
-    t = smoke.device_times(lambda: nms_keep_mask(cboxes, cvalid, 0.5), iters=50)
-    smoke.log_device_times(f"nms on the main path's candidates [32, {cvalid.shape[1]}], "
-                           f"{int(cvalid.sum())} valid", t)
+    images, batch, sizes = table.main_path_batch(dev)
+    net = table.main_path_net()
+    cboxes, cvalid = table.predict_candidates(net, batch, sizes)
+    print(table.profile_line(f"nms on predict's candidates [32, {cvalid.shape[1]}], "
+                             f"{int(cvalid.sum())} valid",
+                             table.profile(lambda: nms_keep_mask(cboxes, cvalid, 0.5), 50)))
     with torch.inference_mode():
-        forward = smoke.time_ms(lambda: apply_detector(net.module, batch, return_levels=True), 5)
-        composition = smoke.time_ms(lambda: net._predict_impl(batch, sizes), 5)
+        forward = table.time_ms(lambda: apply_detector(net.module, batch, return_levels=True), 5)
+        composition = table.time_ms(lambda: net._predict_impl(batch, sizes), 5)
         cls_l, box_l = apply_detector(net.module, batch, return_levels=True)
-        anchors = net._anchors_for(tuple(batch.shape[1:3]))
-        post = smoke.device_times(lambda: process_detections_multilevel_batch(
-            cls_l, box_l, anchors, sizes, score_thres=net.score_thres, nms_thres=net.nms_thres,
-            max_detections=net.max_detections), iters=10)
-    smoke.log(f"[predict] composition (forward + postprocess, CUDA events) {composition:.3f} ms, "
-              f"{smoke.BATCH / composition * 1e3:.1f} img/s; forward {forward:.3f} ms; postprocess "
-              f"{composition - forward:.3f} ms")
-    net.predict(images[:2])  # warm-up, as phase 4
+
+        def post():
+            return process_detections_multilevel_batch(
+                cls_l, box_l, net._anchors_for(tuple(batch.shape[1:3])), sizes,
+                score_thres=net.score_thres, nms_thres=net.nms_thres,
+                max_detections=net.max_detections)
+
+        kernels = table.profile(post, 10)
+        post_ms, post_host = table.time_ms(post, 10), host_us(post, 10)
+    print(f"[predict] composition (forward + postprocess, CUDA events) {composition:.3f} ms, "
+          f"{table.BATCH / composition * 1e3:.1f} img/s; forward {forward:.3f} ms; postprocess "
+          f"{composition - forward:.3f} ms")
+    net.predict(images[:2])  # warm-up
     times = []
     for _ in range(5):
         t0 = time.perf_counter()
         net.predict(images)
         times.append(time.perf_counter() - t0)
     per_batch = sorted(times)[2]
-    smoke.log(f"[e2e] predict batch {smoke.BATCH}: median {per_batch * 1e3:.1f} ms over 5 -> "
-              f"{smoke.BATCH / per_batch:.1f} img/s (host clock, chip_smoke.py phase 5's measure)")
-    top = sorted(post["kernels"].items(), key=lambda kv: -kv[1][0])[:12]
-    smoke.log(f"[postprocess] alone: device {smoke.device_ms(post) * 1e3:.1f} us per call in "
-              f"{sum(n for _, n in post['kernels'].values()):g} launches; CUDA events "
-              f"{post['event_ms'] * 1e3:.1f} us; host enqueue {post['host_us']:.1f} us; top: "
-              + "; ".join(f"{k} {us:.1f} us x{n:g}" for k, (us, n) in top))
+    print(f"[e2e] predict batch {table.BATCH}: median {per_batch * 1e3:.1f} ms over 5 -> "
+          f"{table.BATCH / per_batch:.1f} img/s (host clock)")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    print(f"[postprocess] alone: device {sum(us for us, _ in kernels.values()):.1f} us per call in "
+          f"{sum(n for _, n in kernels.values()):g} launches; CUDA events {post_ms * 1e3:.1f} us; "
+          f"host enqueue {post_host:.1f} us; top: "
+          + "; ".join(f"{k} {us:.1f} us x{n:g}" for k, (us, n) in top))
     return 0
 
 

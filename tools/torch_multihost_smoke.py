@@ -5,8 +5,8 @@ with ``torch.multiprocessing`` in ``spawn`` mode (CUDA cannot fork), joins
 them through a ``file://`` store in a temporary directory (no port to
 collide on), bounds every run with a join timeout, and collects each rank's
 ``rank{r}.json``. ``tests/test_torch_parallel.py``, ``tests/test_torch_ddp.py``
-and ``chip_smoke.py`` run their rank functions through :class:`RankRun`;
-the jobs below are theirs and this script's.
+and ``tests/test_torch_card_parallel.py`` run their rank functions through
+:class:`RankRun`; the jobs below are theirs and this script's.
 
 Run as a script (resnet18 at 64x96, f32), it does what the JAX tool does:
 on a seeded CSV dataset of 7 images and weights fitted 20 steps on it
@@ -878,7 +878,7 @@ def main(argv=None) -> int:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     # The card's f32 convolutions and sums differ in order between batch
-    # shapes by more than the CPU's (chip_smoke.py 14b's bars).
+    # shapes by more than the CPU's (tests/test_torch_card_parallel.py's bars).
     loss_rtol, update_rtol = (1e-5, 1e-4) if cuda else (1e-6, 1e-5)
     torch.set_num_threads(1)
     with tempfile.TemporaryDirectory(prefix="torch_multihost_") as work:

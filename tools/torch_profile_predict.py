@@ -3,7 +3,7 @@
 Run from the root of a checkout on a machine with the card:
 ``python3 tools/torch_profile_predict.py``. It builds the main-path detector
 (R50-FPN, 90 classes, prior 0.5, seed 0) and the same 32 seeded 800x1333
-images as ``chip_smoke.py``, then reports:
+images as ``tools/torch_kernel_table.py``, then reports:
 
 1. stage times with CUDA events on the padded 800x1344 uint8 batch (what
    ``predict`` builds): fused stem (normalize inside), ResNet trunk, FPN,
